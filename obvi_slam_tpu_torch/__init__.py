@@ -7,11 +7,13 @@ Layout (each module keeps the name of its counterpart in ``obvi_slam_tpu``):
   - ``factors``                  the five residual families; the plain
                                  versions of kernels K1 (reprojection) and K2
                                  (bounding box);
-  - ``ops``                      K1 and K2 in CUDA C++ (``ops/csrc``), built
+  - ``ops``                      K1-K4 in CUDA C++ (``ops/csrc``), built
                                  with nvcc on first use, with launch counters;
-  - ``solver``                   the host Schur plan, ``compute_step`` on the
-                                 dense slot-gram path, LM and the two-phase
-                                 window solve;
+                                 K3 (banded gram) and K4 (syrk gram) hold their
+                                 plain versions beside their wrappers;
+  - ``solver``                   the host Schur plan with the band layouts,
+                                 ``compute_step`` on the dense and banded
+                                 slot-gram paths, LM and the two-phase solve;
   - ``synthetic``, ``convert``   test problems and state exchange with the
                                  reference package.
 

@@ -1,15 +1,19 @@
 """Hand-written CUDA kernels for the H100 and their wrappers.
 
-K1 ``reproj`` replaces ``obvi_slam_tpu/ops/reproj_pallas.py::_kernel`` and
-K2 ``bbox`` replaces ``obvi_slam_tpu/ops/bbox_pallas.py::_kernel``. Each
+K1 ``reproj`` replaces ``obvi_slam_tpu/ops/reproj_pallas.py::_kernel``,
+K2 ``bbox`` replaces ``obvi_slam_tpu/ops/bbox_pallas.py::_kernel``,
+K3 ``band_gram`` replaces ``obvi_slam_tpu/ops/band_gram_pallas.py::_kernel``
+and K4 ``syrk`` replaces ``obvi_slam_tpu/ops/syrk_pallas.py::_kernel``. Each
 wrapper counts the launches of its kernel.
 """
 
-from obvi_slam_tpu_torch.ops import bbox, reproj
+from obvi_slam_tpu_torch.ops import band_gram, bbox, reproj, syrk
+from obvi_slam_tpu_torch.ops.band_gram import band_zbuild_gram  # noqa: F401
 from obvi_slam_tpu_torch.ops.bbox import bbox_residuals_and_jac  # noqa: F401
 from obvi_slam_tpu_torch.ops.reproj import reproj_residuals_and_jac  # noqa: F401
+from obvi_slam_tpu_torch.ops.syrk import syrk_gram  # noqa: F401
 
-_WRAPPERS = {"reproj": reproj, "bbox": bbox}
+_WRAPPERS = {"reproj": reproj, "bbox": bbox, "band_gram": band_gram, "syrk": syrk}
 
 
 def kernel_launches() -> dict:

@@ -2,13 +2,16 @@
 
 Counterpart of the plan half of ``obvi_slam_tpu/solver/schur.py``
 (``SchurPlan``, ``_round_up``, ``_slot_layout``, the numpy ``_build_pairs``,
-``_pair_factor_gather``, ``build_schur_plan``, ``build_schur_plan_host``).
+``_band_layout``, ``_rel_band_layout``, ``_pair_factor_gather``,
+``build_schur_plan``, ``build_schur_plan_host``).
 The reference's native C++ pair builder is not copied: its numpy twin here
 is the specification and gives the same arrays.
 
-The banded layouts engage at >= 192 poses in the reference; this port does
-not build them yet, so a plan for that many poses raises
-``NotImplementedError`` instead of silently taking the dense layout.
+From ``3 * BAND_TP`` = 192 poses up, ``_band_layout`` regroups the point
+slot grid into 64-pose groups for the banded gram (kernel K3), and
+``_rel_band_layout`` builds the matching relpose layout when the relpose
+chain is given, as the reference's ``_band_layout`` and ``_rel_band_layout``
+do. Wide spans (loop closures) fall back to the dense layout.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-# Poses per band tile in the reference; banding starts at 3 tiles.
+# Poses per band group; each group's local pose window is 2 * BAND_TP wide,
+# and banding starts at 3 groups' worth of poses.
 BAND_TP = 64
 
 
@@ -58,11 +62,15 @@ class SchurPlan(NamedTuple):
     ob_slot_pose: object  # (Lo, Co)
     ob_slot_mask: object  # (Lo, Co)
     ob_slot_land: object  # (Lo,)
-    # Band layouts: always None in this port (see module docstring).
+    # Banded point gram: when set, the pt_slot_* rows above are reordered by
+    # 64-pose home group into G groups of Lg rows, and this (G, Lg, Cp)
+    # array holds each slot's pose relative to its group's first pose.
     pt_band_local_pose: object = None
-    rel_band_gather: object = None
-    rel_band_mask: object = None
-    rel_band_local_pose: object = None
+    # Banded relpose layout (rows: relpose factors with 2 slots, then one
+    # single-slot row per pose); None when some relpose pair is too wide.
+    rel_band_gather: object = None  # (L2, 2)
+    rel_band_mask: object = None  # (L2, 2)
+    rel_band_local_pose: object = None  # (G, Lg2, 2)
     # Factor row per pair row when factor -> pair is injective, else None.
     pt_pair_factor: object = None
     ob_pair_factor: object = None
@@ -107,6 +115,81 @@ def _slot_layout(pair_block, pair_land, n_pairs, land_cap=None, cmax_cap=None):
     mask[rows, slot] = True
     land[:n_land] = uniq_land.astype(np.int32) if n_land else land[:0]
     return gather, pose, mask, land
+
+
+def _band_layout(slot_gather, slot_pose, slot_mask, slot_land, n_pose, lg_cap=None):
+    """Regroup slot-grid rows by 64-pose home group for the banded gram.
+
+    Returns None when banding does not apply (fewer than 3 * BAND_TP poses,
+    no live row, or a live landmark whose poses span past its 128-pose
+    window); otherwise (gather, pose, mask, land, local_pose): the slot grid
+    with group g's rows at [g * Lg, g * Lg + count_g), and the (G, Lg, C)
+    pose of each slot relative to its group's first pose (0 when dead)."""
+    if n_pose is None or n_pose < 3 * BAND_TP:
+        return None
+    slot_pose = np.asarray(slot_pose)
+    slot_mask = np.asarray(slot_mask)
+    live_row = slot_mask.any(axis=1)
+    if not live_row.any():
+        return None
+    min_p = np.where(slot_mask, slot_pose, np.iinfo(np.int32).max).min(axis=1)
+    max_p = np.where(slot_mask, slot_pose, -1).max(axis=1)
+    n_group = -(-int(n_pose) // BAND_TP)
+    home = np.clip(
+        np.where(live_row, min_p // BAND_TP, 0), 0, n_group - 1
+    ).astype(np.int64)
+    if np.any(live_row & (max_p - home * BAND_TP >= 2 * BAND_TP)):
+        return None
+    counts = np.bincount(home[live_row], minlength=n_group)
+    # Lg in 128-row steps (a pinned lg_cap is a minimum).
+    lg = max(lg_cap or 0, -(-int(counts.max()) // 128) * 128)
+    _, n_slot = slot_mask.shape
+    rows = np.nonzero(live_row)[0]
+    order = rows[np.argsort(home[rows], kind="stable")]
+    within = np.arange(len(order)) - np.concatenate(([0], np.cumsum(counts)[:-1]))[home[order]]
+    dest = home[order] * lg + within
+    gather = np.zeros((n_group * lg, n_slot), dtype=np.int32)
+    pose = np.zeros((n_group * lg, n_slot), dtype=np.int32)
+    mask = np.zeros((n_group * lg, n_slot), dtype=bool)
+    land = np.zeros(n_group * lg, dtype=np.int32)
+    local = np.zeros((n_group * lg, n_slot), dtype=np.int32)
+    gather[dest] = np.asarray(slot_gather)[order]
+    pose[dest] = slot_pose[order]
+    mask[dest] = slot_mask[order]
+    land[dest] = np.asarray(slot_land)[order]
+    local[dest] = np.where(
+        slot_mask[order], slot_pose[order] - (home[order] * BAND_TP)[:, None], 0
+    )
+    return gather, pose, mask, land, local.reshape(n_group, lg, n_slot)
+
+
+def _rel_band_layout(rl_before, rl_after, rl_cap, n_pose, lg_cap=None):
+    """Band layout of the relpose + pose-diagonal rows: rl_cap relpose rows
+    (slot 0 gathers J_b^T at k, slot 1 J_a^T at rl_cap + k) and one
+    single-slot row per pose (gathering 2 rl_cap + p). Returns
+    (gather, mask, local_pose) or None when banding does not apply."""
+    if n_pose is None or n_pose < 3 * BAND_TP:
+        return None
+    rl_before = np.asarray(rl_before, dtype=np.int64)
+    rl_after = np.asarray(rl_after, dtype=np.int64)
+    n_live = len(rl_before)
+    n_rows = rl_cap + n_pose
+    gather = np.zeros((n_rows, 2), np.int32)
+    pose = np.zeros((n_rows, 2), np.int32)
+    mask = np.zeros((n_rows, 2), bool)
+    gather[:rl_cap, 0] = np.arange(rl_cap)
+    gather[:rl_cap, 1] = rl_cap + np.arange(rl_cap)
+    pose[:n_live, 0] = rl_before
+    pose[:n_live, 1] = rl_after
+    mask[:n_live, :] = True
+    gather[rl_cap:, 0] = 2 * rl_cap + np.arange(n_pose)
+    pose[rl_cap:, 0] = np.arange(n_pose)
+    mask[rl_cap:, 0] = True
+    out = _band_layout(gather, pose, mask, np.zeros(n_rows, np.int32), n_pose, lg_cap)
+    if out is None:
+        return None
+    g2, _, m2, _, local = out
+    return g2, m2, local
 
 
 def _pad_i(x, cap, fill=0):
@@ -211,13 +294,14 @@ def _to_device(plan: SchurPlan, device) -> SchurPlan:
 
 def build_schur_plan_numpy(
     rp_pose, rp_point, rp_mask, bb_pose, bb_obj, bb_mask, caps=None, n_pose=None,
+    rl_before=None, rl_after=None, rl_cap=0,
 ) -> SchurPlan:
-    """The plan as numpy arrays from padded index columns and masks."""
-    if n_pose is not None and n_pose >= 3 * BAND_TP:
-        raise NotImplementedError(
-            f"{n_pose} poses: the banded Schur layout (>= {3 * BAND_TP} poses) "
-            "is not ported yet"
-        )
+    """The plan as numpy arrays from padded index columns and masks.
+
+    ``caps`` pins minimum capacities (keys pt_pair, pt_cross, pt_slot_land,
+    pt_slot_c, pt_dest, the ob_* twins, pt_band_lg, rel_band_lg).
+    ``rl_before``/``rl_after`` are the live relpose pairs and ``rl_cap`` the
+    relpose table capacity; without them no relpose band is built."""
     caps = caps or {}
     pt = _build_pairs(
         np.asarray(rp_pose), np.asarray(rp_point), np.asarray(rp_mask),
@@ -229,15 +313,33 @@ def build_schur_plan_numpy(
         caps.get("ob_pair"), caps.get("ob_cross"), caps.get("ob_slot_land"),
         caps.get("ob_slot_c"), caps.get("ob_dest"),
     )
+    pt_slot = pt[11:]
+    band = _band_layout(*pt_slot, n_pose, caps.get("pt_band_lg"))
+    pt_band_local_pose = None
+    if band is not None:
+        pt_slot, pt_band_local_pose = band[:4], band[4]
+    rel_band = None
+    if rl_before is not None and rl_cap:
+        rel_band = _rel_band_layout(
+            rl_before, rl_after, int(rl_cap), n_pose, caps.get("rel_band_lg")
+        )
     return SchurPlan(
-        *pt,
+        *pt[:11],
+        *pt_slot,
         *ob,
+        pt_band_local_pose=pt_band_local_pose,
+        rel_band_gather=None if rel_band is None else rel_band[0],
+        rel_band_mask=None if rel_band is None else rel_band[1],
+        rel_band_local_pose=None if rel_band is None else rel_band[2],
         pt_pair_factor=_pair_factor_gather(pt[0], rp_mask, len(pt[1])),
         ob_pair_factor=_pair_factor_gather(ob[0], bb_mask, len(ob[1])),
     )
 
 
-def build_schur_plan(tables, caps=None, n_pose=None, device="cuda") -> SchurPlan:
+def build_schur_plan(
+    tables, caps=None, n_pose=None, rl_before=None, rl_after=None, rl_cap=0,
+    device="cuda",
+) -> SchurPlan:
     """Plan from the factor tables' index columns (read back to the host)."""
     rp, bb = tables.reproj, tables.bbox
 
@@ -247,13 +349,14 @@ def build_schur_plan(tables, caps=None, n_pose=None, device="cuda") -> SchurPlan
     plan = build_schur_plan_numpy(
         host(rp.pose_idx), host(rp.point_idx), host(rp.mask),
         host(bb.pose_idx), host(bb.obj_idx), host(bb.mask), caps, n_pose,
+        rl_before, rl_after, rl_cap,
     )
     return _to_device(plan, device)
 
 
 def build_schur_plan_host(
     rp_pose, rp_point, rp_cap, bb_pose, bb_obj, bb_cap, caps=None,
-    n_pose=None, device="cuda",
+    n_pose=None, rl_before=None, rl_after=None, rl_cap=0, device="cuda",
 ) -> SchurPlan:
     """Plan from live host index lists; ``*_cap`` are the table capacities."""
 
@@ -269,6 +372,7 @@ def build_schur_plan_host(
     bb_pose_a, bb_mask = padded(bb_pose, bb_cap)
     bb_obj_a, _ = padded(bb_obj, bb_cap)
     plan = build_schur_plan_numpy(
-        rp_pose_a, rp_point_a, rp_mask, bb_pose_a, bb_obj_a, bb_mask, caps, n_pose
+        rp_pose_a, rp_point_a, rp_mask, bb_pose_a, bb_obj_a, bb_mask, caps, n_pose,
+        rl_before, rl_after, rl_cap,
     )
     return _to_device(plan, device)

@@ -200,7 +200,8 @@ def synthetic_problem(
     )
     plan = plan_mod.build_schur_plan_host(
         pose_idx, pt_idx, reproj.capacity, flat_o_pose[keep_o], flat_o_obj[keep_o],
-        bbox.capacity, n_pose=n_poses, device=device,
+        bbox.capacity, n_pose=n_poses, rl_before=np.arange(n_poses - 1),
+        rl_after=np.arange(1, n_poses), rl_cap=relpose.capacity, device=device,
     )
 
     def t(x):

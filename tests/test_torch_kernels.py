@@ -1,21 +1,26 @@
-"""Plain versions of kernels K1 (reprojection) and K2 (bounding box) in
-obvi_slam_tpu_torch against the JAX reference: its Pallas kernels in
-interpret mode and its XLA paths, at f64 on CPU. The CUDA kernels themselves
-are held against these plain versions on the card by chip_smoke.py."""
+"""Plain versions of kernels K1 (reprojection), K2 (bounding box), K3 (banded
+z build + group gram) and K4 (syrk gram) in obvi_slam_tpu_torch against the
+JAX reference: its Pallas kernels in interpret mode and its XLA paths, at f64
+on CPU (K3 and K4 also at f32 against the Pallas split-bf16 grams). The CUDA
+kernels themselves are held against these plain versions on the card by
+chip_smoke.py."""
 
 import numpy as np
 import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from obvi_slam_tpu import types as jt
 from obvi_slam_tpu.factors.reproj_fast import reproj_residuals_and_jac_fast as jax_reproj_fast
 from obvi_slam_tpu.factors.residuals import bbox_residuals_and_jac
+from obvi_slam_tpu.ops import band_gram_pallas, syrk_pallas
 from obvi_slam_tpu.ops.bbox_pallas import bbox_residuals_and_jac_pallas
 from obvi_slam_tpu.ops.reproj_pallas import BLOCK_F, reproj_residuals_and_jac_pallas
 from obvi_slam_tpu_torch import factors as fac
 from obvi_slam_tpu_torch import ops
+from obvi_slam_tpu_torch.ops import band_gram, syrk
 from torch_port_helpers import assert_close, jax_problem, npy, to_port
 
 torch.set_num_threads(1)
@@ -128,7 +133,14 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
         fac.bbox_residuals_and_jac(s, c, to_port(tables.bbox)),
     ):
         assert torch.equal(a, b)
-    assert ops.kernel_launches() == {"reproj": 0, "bbox": 0}
+    w_rows, local_pose = (torch.from_numpy(x) for x in _band_inputs(1, 64, 4, np.float64))
+    for a, b in zip(
+        ops.band_zbuild_gram(w_rows, local_pose),
+        band_gram.band_zbuild_gram_plain(w_rows, local_pose),
+    ):
+        assert torch.equal(a, b)
+    assert torch.equal(ops.syrk_gram(w_rows[0]), syrk.syrk_gram_plain(w_rows[0]))
+    assert ops.kernel_launches() == {"reproj": 0, "bbox": 0, "band_gram": 0, "syrk": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -141,3 +153,86 @@ def test_wrappers_refuse_devices_without_a_kernel():
         ops.reproj_residuals_and_jac(s, to_port(cams), to_port(tables.reproj))
     with pytest.raises(ValueError, match="unsupported device"):
         ops.bbox_residuals_and_jac(s, to_port(cams), to_port(tables.bbox))
+    w_rows, local_pose = (
+        torch.from_numpy(x).to("meta") for x in _band_inputs(1, 64, 4, np.float32)
+    )
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.band_zbuild_gram(w_rows, local_pose)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.syrk_gram(w_rows[0])
+    assert ops.kernel_launches() == {"reproj": 0, "bbox": 0, "band_gram": 0, "syrk": 0}
+
+
+def _band_inputs(n_group, k_rows, n_slot, dtype, seed=0):
+    """K3 operands: w_rows (G, K, 6C) and local_pose (G, K, C) with distinct
+    local poses per row, except rows 3, 4 and 5 (mod 8), which repeat a pose
+    (summed) or hold dead slots (128)."""
+    rng = np.random.default_rng(seed)
+    w_rows = (rng.normal(size=(n_group, k_rows, 6 * n_slot))
+              * rng.lognormal(0, 1, (n_group, k_rows, 6 * n_slot))).astype(dtype)
+    local = np.stack([
+        np.stack([rng.choice(128, n_slot, replace=False) for _ in range(k_rows)])
+        for _ in range(n_group)
+    ]).astype(np.int32)
+    rows = np.arange(k_rows) % 8
+    local[:, rows == 3, 1] = local[:, rows == 3, 0]
+    local[:, rows == 4, 2:] = 128
+    local[:, rows == 5, :] = 128
+    return w_rows, local
+
+
+def _unique_rows(local):
+    live = np.where(local < 128, local, -1 - np.arange(local.shape[-1]))
+    return np.array([[len(set(r)) == len(r) for r in g] for g in live])
+
+
+def test_band_gram_plain_matches_pallas_f32():
+    """z equal bit for bit where each row's live local poses are distinct
+    (one product per entry); s within 1e-5 of its largest entry (the Pallas
+    kernel's 3-part bf16 split against FP32 sums)."""
+    w_rows, local = _band_inputs(2, 512, 6, np.float32, seed=1)
+    z_ref, s_ref = band_gram_pallas.band_zbuild_gram(
+        jnp.asarray(w_rows), jnp.asarray(local), parts=3, interpret=True
+    )
+    z, s = band_gram.band_zbuild_gram_plain(torch.from_numpy(w_rows), torch.from_numpy(local))
+    assert z.dtype == s.dtype == torch.float32
+    unique = _unique_rows(local)
+    assert unique.sum() > 0.8 * unique.size and not unique.all()
+    np.testing.assert_array_equal(npy(z)[unique], np.asarray(z_ref)[unique])
+    s_ref = np.asarray(s_ref)
+    assert np.abs(npy(s) - s_ref).max() <= 1e-5 * np.abs(s_ref).max()
+
+
+def test_band_gram_plain_matches_numpy_f64():
+    w_rows, local = _band_inputs(3, 200, 5, np.float64, seed=2)
+    onehot = (local[..., None] == np.arange(128)).astype(np.float64)  # (G, K, C, 128)
+    z_ref = np.einsum("gksc,gksp->gkcp", w_rows.reshape(3, 200, 5, 6), onehot).reshape(3, 200, 768)
+    s_ref = np.einsum("gki,gkj->gij", z_ref, z_ref)
+    z, s = band_gram.band_zbuild_gram_plain(torch.from_numpy(w_rows), torch.from_numpy(local))
+    np.testing.assert_allclose(npy(z), z_ref, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(npy(s), s_ref, rtol=1e-12, atol=1e-12 * np.abs(s_ref).max())
+
+
+def _syrk_operand(dtype):
+    rng = np.random.default_rng(0)
+    return (rng.normal(size=(1024, 768)) * rng.lognormal(0, 2, (1024, 768))).astype(dtype)
+
+
+def test_syrk_plain_matches_pallas_f32():
+    """Against the 3-part split kernel mirrored to a full matrix: rtol 1e-5,
+    with an absolute floor of 1e-5 of the largest entry for entries that
+    cancel."""
+    c = _syrk_operand(np.float32)
+    ref = np.asarray(syrk_pallas.mirror_lower(
+        syrk_pallas.syrk_lower_split(jnp.asarray(c), parts=3, interpret=True)
+    ))
+    s = npy(syrk.syrk_gram_plain(torch.from_numpy(c)))
+    assert s.dtype == np.float32
+    np.testing.assert_allclose(s, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+
+
+def test_syrk_plain_matches_numpy_f64():
+    c = _syrk_operand(np.float64)
+    ref = c.T @ c
+    s = npy(syrk.syrk_gram_plain(torch.from_numpy(c)))
+    np.testing.assert_allclose(s, ref, rtol=1e-12, atol=1e-12 * np.abs(ref).max())

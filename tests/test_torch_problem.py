@@ -8,7 +8,7 @@ import torch
 from obvi_slam_tpu import types as jt
 from obvi_slam_tpu.solver import schur as jschur
 from obvi_slam_tpu_torch import convert
-from obvi_slam_tpu_torch import synthetic_problem
+from obvi_slam_tpu_torch import compute_step, synthetic_problem
 from obvi_slam_tpu_torch.solver import plan as plan_mod
 from torch_port_helpers import JAX_TYPES, jax_problem, npy, to_port
 
@@ -91,8 +91,15 @@ def test_plan_with_duplicate_observations_and_pinned_caps():
 
 
 def test_banded_plan_is_refused():
-    with pytest.raises(NotImplementedError, match="banded"):
-        plan_mod.build_schur_plan_host([0], [0], 1, [0], [0], 1, n_pose=192, device="cpu")
+    """A banded plan is built at any size, equal to the reference's; from 512
+    poses, where the reference solves S block-tridiagonally (a solve the
+    port does not have), compute_step refuses it."""
+    size = dict(n_poses=512, n_points=256, n_objects=2, obs_per_object=4, seed=0)
+    state, _, cams, tables, plan, free, weights, huber = synthetic_problem(**size, device="cpu")
+    _assert_trees_equal(plan, jax_problem(**size)[4], "plan")
+    assert plan.pt_band_local_pose is not None and plan.rel_band_local_pose is not None
+    with pytest.raises(NotImplementedError, match="band solve"):
+        compute_step(state, cams, tables, plan, free, weights, 1e4, huber)
 
 
 def test_convert_round_trips_a_jax_problem():

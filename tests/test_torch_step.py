@@ -85,9 +85,9 @@ def test_unported_paths_raise():
     args = (state, cams, tables, plan, free, weights, 1e4, huber)
     with pytest.raises(NotImplementedError, match="pair-enumeration"):
         compute_step(*args, dense_schur=False)
-    banded = plan._replace(pt_band_local_pose=torch.zeros((1, 1, 1), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="banded"):
-        compute_step(state, cams, tables, banded, free, weights, 1e4, huber)
+    big = synthetic_problem(n_poses=512, n_points=256, n_objects=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="band solve"):
+        compute_step(*big[:1], *big[2:7], 1e4, big[7])
     budget = schur_mod._SLOT_BUDGET
     try:
         schur_mod._SLOT_BUDGET = 1
