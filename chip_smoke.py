@@ -10,8 +10,12 @@ It builds the CUDA kernels from ``obvi_slam_tpu_torch/ops/csrc`` with nvcc
 PyTorch version, in f32 and f64, at the shapes the main path gives it: K1
 (reprojection) and K2 (bounding box) at the local-BA window's tables, K3
 (banded z build + group gram) at the global problem's operands and K4 (syrk
-gram) at the window's point gram. It checks one f32 step with the kernels
-against an f64 step of the plain versions on both problems. Then it drives
+gram) at the window's point gram; K3 and K4 also on operands off the main
+path (dense and permuted C, local poses across the whole window, repeated
+poses, dead slots and rows, ragged and empty shapes), twice bit for bit, with
+the blocks each launches and the rows each output tile multiplies. It checks
+one f32 step with the kernels against an f64 step of the plain versions on
+both problems. Then it drives
 the main path, two phases, each with the launch counts reset just before it:
 
   - ``global``: the two-phase global bundle adjustment of 256 poses x 4096
@@ -51,6 +55,7 @@ import obvi_slam_tpu_torch as ot  # noqa: E402
 from obvi_slam_tpu_torch import factors as fac  # noqa: E402
 from obvi_slam_tpu_torch import ops  # noqa: E402
 from obvi_slam_tpu_torch.ops import _build, band_gram, syrk  # noqa: E402
+from obvi_slam_tpu_torch.ops._gram import lower_pair  # noqa: E402
 from obvi_slam_tpu_torch.solver import (  # noqa: E402
     TERMINATION_NAMES,
     LMParams,
@@ -263,7 +268,142 @@ def check_grams(np_dtype):
         f"(c {tuple(c.shape)}) max abs err {errs['syrk']:.3e} (largest |S| "
         f"{float(s4.abs().max()):.3e}) - ok"
     )
+    z2, s2 = band_gram.launch(w_rows, local_pose)
+    s42 = syrk.launch(c)
+    torch.cuda.synchronize()
+    if not (torch.equal(z, z2) and torch.equal(s, s2) and torch.equal(s4, s42)):
+        raise AssertionError("gram kernels: two launches on the same operands differ")
+    print("grams: two launches on the main-path operands equal bit for bit - ok")
+    check_gram_edges(dtype, c)
     return errs, {"band_gram": (w_rows, local_pose), "syrk": (c,)}
+
+
+def band_edge_operands(n_group, k_rows, n_slot, dtype, seed=0):
+    """K3 operands off the main path: local poses drawn from all of [0, 128),
+    distinct per row except rows 3, 4, 5, 6 (mod 8): a repeated pose (summed),
+    dead slots (128), an all-dead row, dead slots outside [0, 128) (-1, 200)."""
+    rng = np.random.default_rng(seed)
+    w_rows = rng.normal(size=(n_group, k_rows, 6 * n_slot)) * rng.lognormal(
+        0, 1, (n_group, k_rows, 6 * n_slot)
+    )
+    local = np.stack([
+        np.stack([rng.choice(128, n_slot, replace=False) for _ in range(k_rows)])
+        for _ in range(n_group)
+    ])
+    rows = np.arange(k_rows) % 8
+    local[:, rows == 3, 1] = local[:, rows == 3, 0]
+    local[:, rows == 4, 2:] = 128
+    local[:, rows == 5, :] = 128
+    local[:, rows == 6, 0] = -1
+    local[:, rows == 6, -1] = 200
+    return (torch.tensor(w_rows, dtype=dtype, device=DEVICE),
+            torch.tensor(local, dtype=torch.int32, device=DEVICE))
+
+
+def dense_operand(k_rows, m, dtype, gen, offset=0):
+    """A (k_rows, m) C with no zeros, as a contiguous view that starts
+    ``offset`` elements into its buffer (so off 16 bytes for offset 1)."""
+    flat = torch.randn(offset + k_rows * m, generator=gen, dtype=torch.float64)
+    flat.add_(torch.where(torch.rand(flat.shape, generator=gen) < 0.5, 3.0, -3.0))
+    return flat.to(dtype=dtype, device=DEVICE)[offset:].view(k_rows, m)
+
+
+def check_gram_edges(dtype, c_window):
+    """K3 and K4 against their plain versions on operands the main path does
+    not give them: K4 on dense ragged C with no zeros (M a multiple of the
+    16-byte vector, M odd, and a view off 16 bytes: the last two take the
+    4- or 8-byte access path), on the window's operand with its rows
+    permuted, and at K = 0 and M = 0; K3 on band_edge_operands (K = 1000,
+    not a multiple of a chunk), at K = 0 and G = 0. Outputs must come out
+    exactly symmetric and dead rows of z exactly 0."""
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    name = str(dtype).split(".")[-1]
+    syrk_cases = {
+        "dense 1031x200": dense_operand(1031, 200, dtype, gen),
+        "dense 1031x201": dense_operand(1031, 201, dtype, gen),
+        "dense 1031x200 off 16 B": dense_operand(1031, 200, dtype, gen, offset=1),
+        "window rows permuted": c_window[torch.randperm(c_window.shape[0], generator=gen)
+                                         .to(DEVICE)].contiguous(),
+        "K=0": torch.zeros((0, 70), dtype=dtype, device=DEVICE),
+        "M=0": torch.zeros((5, 0), dtype=dtype, device=DEVICE),
+    }
+    for label, c in syrk_cases.items():
+        if label.startswith("dense") and not bool((c != 0).all()):
+            raise AssertionError("dense syrk operand holds a zero")
+        if label.endswith("off 16 B") and c.data_ptr() % 16 == 0:
+            raise AssertionError("syrk operand meant to lie off 16 bytes is aligned")
+        s4 = syrk.launch(c)
+        plain = syrk.syrk_gram_plain(c)
+        torch.cuda.synchronize()
+        if not bool((s4 == s4.T).all()):
+            raise AssertionError(f"syrk {label}: output not exactly symmetric")
+        err = _compare(f"syrk {label}", (s4,), (plain,), dtype, gram=True) if s4.numel() else 0.0
+        print(f"syrk edge {name} {label} (c {tuple(c.shape)}): max abs err {err:.3e} - ok")
+    band_cases = {
+        "edge G=3 K=1000 C=6": band_edge_operands(3, 1000, 6, dtype),
+        "K=0": (torch.zeros((2, 0, 36), dtype=dtype, device=DEVICE),
+                torch.zeros((2, 0, 6), dtype=torch.int32, device=DEVICE)),
+        "G=0": (torch.zeros((0, 8, 36), dtype=dtype, device=DEVICE),
+                torch.zeros((0, 8, 6), dtype=torch.int32, device=DEVICE)),
+    }
+    for label, (w_rows, local_pose) in band_cases.items():
+        z, s = band_gram.launch(w_rows, local_pose)
+        plain = band_gram.band_zbuild_gram_plain(w_rows, local_pose)
+        torch.cuda.synchronize()
+        dead = ((local_pose < 0) | (local_pose >= band_gram.WIDTH)).all(-1)
+        if not bool((z[dead] == 0).all()):
+            raise AssertionError(f"band_gram {label}: z rows of dead slots not exactly zero")
+        if not bool((s == s.transpose(1, 2)).all()):
+            raise AssertionError(f"band_gram {label}: output not exactly symmetric")
+        pairs = [(a, b) for a, b in zip((z, s), plain) if a.numel()]
+        err = _compare(f"band_gram {label}", *zip(*pairs), dtype, gram=True) if pairs else 0.0
+        print(f"band_gram edge {name} {label}: {int(dead.sum())} dead rows, "
+              f"max abs err {err:.3e} - ok")
+
+
+def syrk_tile_rows(c):
+    """Rows of C that each lower 64 x 64 tile pair of K4 multiplies (a
+    non-zero in both of its 64-column panels), as a (pairs,) tensor."""
+    k_rows, m = c.shape
+    p = syrk.plan(k_rows, m)
+    pad = torch.nn.functional.pad(c != 0, (0, p.tiles * syrk.TILE - m))
+    panel = pad.reshape(k_rows, p.tiles, syrk.TILE).any(-1)  # (K, tiles)
+    ti, tj = zip(*(lower_pair(t) for t in range(p.pairs)))
+    return (panel[:, list(ti)] & panel[:, list(tj)]).sum(0)
+
+
+def band_tile_rows(local_pose):
+    """z rows that each (group, lower 16-pose panel pair) of K3 multiplies
+    (a live slot in both panels), as a (G, PAIRS) tensor."""
+    lp = local_pose.long()
+    live = (lp >= 0) & (lp < band_gram.WIDTH)
+    panel = torch.where(live, lp // band_gram.PANEL, band_gram.PANELS)
+    hit = torch.zeros(lp.shape[:2] + (band_gram.PANELS + 1,), dtype=torch.bool, device=lp.device)
+    hit.scatter_(-1, panel, True)
+    pi, pj = zip(*(lower_pair(t) for t in range(band_gram.PAIRS)))
+    return (hit[..., list(pi)] & hit[..., list(pj)]).sum(1)
+
+
+def gram_tiles(gram_ops):
+    """Prints, per gram kernel at the main path's operands, the blocks of
+    each device kernel as its launcher reported them for one call, and the
+    rows each output tile multiplies, counted on the host from the operands.
+    Runs outside any timed call."""
+    w_rows, local_pose = gram_ops["band_gram"]
+    (c,) = gram_ops["syrk"]
+    band_gram.launch(w_rows, local_pose)
+    syrk.launch(c)
+    torch.cuda.synchronize()
+    for name, mod, p, rows in (
+        ("band_gram", band_gram, band_gram.plan(*w_rows.shape[:2]),
+         band_tile_rows(local_pose).flatten()),
+        ("syrk", syrk, syrk.plan(*c.shape), syrk_tile_rows(c)),
+    ):
+        rows = rows.double()
+        print(f"{name} blocks launched {dict(mod.last_blocks)} ({p.splits} splits of "
+              f"{p.split_rows} rows); rows per tile over {rows.numel()} tiles: mean "
+              f"{float(rows.mean()):.2f}, max {int(rows.max())}, "
+              f"{int((rows == 0).sum())} empty")
 
 
 # ---- one step, f32 kernels against f64 plain ------------------------------
@@ -590,6 +730,7 @@ def main():
     check_grams(np.float64)
     gram_errs, gram_ops = check_grams(np.float32)
     errs.update(gram_errs)
+    gram_tiles(gram_ops)
     for label in PHASES:
         check_step(label)
     phases = {label: main_path_phase(label) for label in PHASES}

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles on first use into its own shared library
 with a plain C interface, under ``ops/build/`` (listed in .gitignore). The
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a built one is reused. ``build()`` starts one nvcc per
-missing source, all at once, and waits for every one of them.
+library's file name carries a hash of its source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source is rebuilt and a built one is
+reused. ``build()`` starts one nvcc per missing source, all at once, and
+waits for every one of them.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))  # shared headers
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,15 +1,21 @@
 """Kernel K3: banded z build + group gram (``csrc/band_gram.cu``).
 
 Replaces the TPU kernel ``obvi_slam_tpu/ops/band_gram_pallas.py::_kernel``,
-with the layouts of its wrapper ``band_zbuild_gram``. On CPU tensors the
-wrapper runs the plain PyTorch version (``band_zbuild_gram_plain``, the
-one-hot contraction and batched gram of the reference's XLA band branch);
-on CUDA tensors it launches the kernel or raises.
+with the layouts of its wrapper ``band_zbuild_gram``. One call launches two
+device kernels: one whose blocks either write z rows or multiply the
+row-compacted z panels of a (group, lower panel pair, row split), and a
+fixed-order reduction of the split partials that writes s. ``plan`` gives
+the row splits; the launcher sizes the grids and reports them in
+``last_blocks``. On CPU tensors the wrapper runs the plain
+PyTorch version (``band_zbuild_gram_plain``, the one-hot contraction and
+batched gram of the reference's XLA band branch); on CUDA tensors it
+launches the kernels or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -17,14 +23,38 @@ from obvi_slam_tpu_torch.ops import _build
 
 WIDTH = 128  # local pose window (2 * plan.BAND_TP)
 WBAND = 6 * WIDTH
+PANEL = 16  # local poses per panel: 96 columns of s (6 components x 16)
+PANELS = WIDTH // PANEL
+PAIRS = PANELS * (PANELS + 1) // 2  # lower panel pairs per group
+CHUNK = 256  # z rows per compaction round of a gram block
+SPLIT_ROWS = 512  # z rows per split, a multiple of CHUNK
+MAX_PARTIALS = 2048  # cap on (group, panel pair, split) partial tiles
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    fn: [_I, _I, _I] + [_P] * 5 for fn in ("band_gram_f32", "band_gram_f64")
+    fn: [_I] * 5 + [_P] * 8 for fn in ("band_gram_f32", "band_gram_f64")
 }
+GRIDS = ("band_gram_kernel (gram)", "band_gram_kernel (z)", "band_gram_kernel_reduce")
 
-# Kernel launches since the last reset (ops.reset_kernel_launches).
+# Wrapper calls that launched the kernels since the last reset
+# (ops.reset_kernel_launches); one per call.
 launches = 0
+# Blocks of each device kernel (gram and z roles of the first apart) of the
+# last call that launched, as the C launcher reported them (0: not launched).
+last_blocks: dict = {}
+
+
+class Plan(NamedTuple):
+    split_rows: int
+    splits: int
+
+
+def plan(n_group, k_rows) -> Plan:
+    """Row splits (and so scratch shapes) of one call on G groups of K z rows."""
+    splits = min(-(-k_rows // SPLIT_ROWS), max(1, MAX_PARTIALS // max(PAIRS * n_group, 1)))
+    split_rows = CHUNK * -(-k_rows // (CHUNK * splits)) if splits else SPLIT_ROWS
+    splits = -(-k_rows // split_rows)
+    return Plan(split_rows, splits)
 
 
 def band_zbuild_gram_plain(w_rows, local_pose):
@@ -65,15 +95,24 @@ def launch(w_rows, local_pose):
     s = torch.empty((n_group, WBAND, WBAND), dtype=dtype, device=device)
     if n_group == 0:
         return z, s
+    p = plan(n_group, k_rows)
+    flags = torch.empty((n_group, PAIRS, p.splits), dtype=torch.int32, device=device)
+    partials = torch.empty(
+        (n_group, PAIRS, p.splits, 6 * PANEL, 6 * PANEL), dtype=dtype, device=device
+    )
     lib = _build.load("band_gram", _ARGTYPES)
     fn = lib.band_gram_f32 if dtype == torch.float32 else lib.band_gram_f64
+    blocks = (ctypes.c_int * len(GRIDS))()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            n_group, k_rows, c6 // 6, w_rows.data_ptr(), local_pose.data_ptr(),
-            z.data_ptr(), s.data_ptr(), stream,
+            n_group, k_rows, c6 // 6, p.split_rows, p.splits, w_rows.data_ptr(),
+            local_pose.data_ptr(), flags.data_ptr(), partials.data_ptr(), z.data_ptr(),
+            s.data_ptr(), stream, blocks,
         )
     if err != 0:
         raise RuntimeError(f"band_gram kernel launch failed: cudaError {err}")
     launches += 1
+    last_blocks.clear()
+    last_blocks.update(zip(GRIDS, blocks))
     return z, s

@@ -1,25 +1,58 @@
 """Kernel K4: symmetric gram S = C^T C (``csrc/syrk.cu``).
 
 Replaces the TPU kernel ``obvi_slam_tpu/ops/syrk_pallas.py::_kernel``
-(wrapper ``syrk_lower_split`` plus the ``mirror_lower`` epilogue): the
-kernel computes the lower-triangle tiles and writes both triangles. On CPU
-tensors the wrapper runs the plain PyTorch version (``c.T @ c``); on CUDA
-tensors it launches the kernel or raises.
+(wrapper ``syrk_lower_split`` plus the ``mirror_lower`` epilogue). One call
+launches three device kernels: a panel mask per row of C, the row-compacted
+products of each (lower tile pair, row split), and a fixed-order reduction of
+the split partials that writes both triangles. ``plan`` gives the row splits
+and the scratch shapes; the launcher sizes the grids and reports them in
+``last_blocks``. On CPU tensors the wrapper runs the plain PyTorch version
+(``c.T @ c``); on CUDA tensors it launches the kernels or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from obvi_slam_tpu_torch.ops import _build
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {fn: [_I, _I, _P, _P, _P] for fn in ("syrk_f32", "syrk_f64")}
+TILE = 64  # output tile edge = panel width in columns of C
+CHUNK = 256  # rows of C per compaction round of a gram block
+SPLIT_ROWS = 256  # rows of C per split, a multiple of CHUNK
+MAX_PARTIALS = 4096  # cap on (tile pair, split) partial tiles
 
-# Kernel launches since the last reset (ops.reset_kernel_launches).
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {fn: [_I] * 5 + [_P] * 7 for fn in ("syrk_f32", "syrk_f64")}
+GRIDS = ("syrk_kernel_mask", "syrk_kernel_gram", "syrk_kernel_reduce")
+
+# Wrapper calls that launched the kernels since the last reset
+# (ops.reset_kernel_launches); one per call.
 launches = 0
+# Blocks of each device kernel of the last call that launched, as the C
+# launcher reported them (0: not launched).
+last_blocks: dict = {}
+
+
+class Plan(NamedTuple):
+    tiles: int  # 64-column panels of C
+    pairs: int  # lower tile pairs (ti >= tj)
+    words: int  # 32-bit mask words per row (a bit per panel)
+    split_rows: int
+    splits: int
+
+
+def plan(k_rows, m) -> Plan:
+    """Row splits and scratch shapes of one call on C (k_rows, m)."""
+    tiles = -(-m // TILE)
+    pairs = tiles * (tiles + 1) // 2
+    words = -(-tiles // 32)
+    splits = min(-(-k_rows // SPLIT_ROWS), max(1, MAX_PARTIALS // max(pairs, 1)))
+    split_rows = CHUNK * -(-k_rows // (CHUNK * splits)) if splits else SPLIT_ROWS
+    splits = -(-k_rows // split_rows)
+    return Plan(tiles, pairs, words, split_rows, splits)
 
 
 def syrk_gram_plain(c):
@@ -48,12 +81,22 @@ def launch(c):
     s = torch.empty((m, m), dtype=dtype, device=device)
     if m == 0:
         return s
+    p = plan(k_rows, m)
+    mask = torch.empty((k_rows, p.words), dtype=torch.int32, device=device)
+    flags = torch.empty((p.pairs, p.splits), dtype=torch.int32, device=device)
+    partials = torch.empty((p.pairs, p.splits, TILE, TILE), dtype=dtype, device=device)
     lib = _build.load("syrk", _ARGTYPES)
     fn = lib.syrk_f32 if dtype == torch.float32 else lib.syrk_f64
+    blocks = (ctypes.c_int * len(GRIDS))()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(k_rows, m, c.data_ptr(), s.data_ptr(), stream)
+        err = fn(
+            k_rows, m, p.words, p.split_rows, p.splits, c.data_ptr(), mask.data_ptr(),
+            flags.data_ptr(), partials.data_ptr(), s.data_ptr(), stream, blocks,
+        )
     if err != 0:
         raise RuntimeError(f"syrk kernel launch failed: cudaError {err}")
     launches += 1
+    last_blocks.clear()
+    last_blocks.update(zip(GRIDS, blocks))
     return s

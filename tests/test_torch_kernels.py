@@ -20,7 +20,7 @@ from obvi_slam_tpu.ops.bbox_pallas import bbox_residuals_and_jac_pallas
 from obvi_slam_tpu.ops.reproj_pallas import BLOCK_F, reproj_residuals_and_jac_pallas
 from obvi_slam_tpu_torch import factors as fac
 from obvi_slam_tpu_torch import ops
-from obvi_slam_tpu_torch.ops import band_gram, syrk
+from obvi_slam_tpu_torch.ops import _gram, band_gram, syrk
 from torch_port_helpers import assert_close, jax_problem, npy, to_port
 
 torch.set_num_threads(1)
@@ -236,3 +236,246 @@ def test_syrk_plain_matches_numpy_f64():
     ref = c.T @ c
     s = npy(syrk.syrk_gram_plain(torch.from_numpy(c)))
     np.testing.assert_allclose(s, ref, rtol=1e-12, atol=1e-12 * np.abs(ref).max())
+
+
+# ---- numpy models of the CUDA gram kernels' tile walks ---------------------
+# Each model follows its kernel's tile walk step by step (plans, masks, pair
+# enumeration, split bounds, in-order compaction, per-tile products,
+# fixed-order reduction, mirror) and is held against the plain version at
+# f64 (rtol 1e-12). This checks the wrappers' plans and the index arithmetic
+# (ops/_gram.py), not the CUDA code: chip_smoke.py holds the kernels
+# themselves against the plain versions on the card, edge operands included.
+
+
+def syrk_tile_walk_model(c):
+    """csrc/syrk.cu on C (K, M): returns (S, rows multiplied per tile pair)."""
+    k_rows, m = c.shape
+    p = syrk.plan(k_rows, m)
+    t = syrk.TILE
+    # Pass 1: bit (panel % 32) of word panel // 32 marks a non-zero in the panel.
+    mask = np.zeros((k_rows, p.words), np.uint32)
+    for panel in range(p.tiles):
+        nz = (c[:, panel * t:(panel + 1) * t] != 0).any(1).astype(np.uint32)
+        mask[:, panel // 32] |= nz << np.uint32(panel % 32)
+    cz = np.zeros((k_rows, p.tiles * t), c.dtype)  # columns past M read as 0
+    cz[:, :m] = c
+    # Pass 2: block (pair, split) compacts its rows chunk by chunk, in order.
+    flags = np.zeros((p.pairs, p.splits), bool)
+    partials = np.zeros((p.pairs, p.splits, t, t), c.dtype)
+    rows = np.zeros(p.pairs, np.int64)
+    for rank in range(p.pairs):  # grid order: diagonal first
+        ti, tj = _gram.diag_pair(rank, p.tiles)
+        pair = ti * (ti + 1) // 2 + tj
+        assert _gram.lower_pair(pair) == (ti, tj)
+        for split in range(p.splits):
+            r_begin = split * p.split_rows
+            r_end = min(k_rows, r_begin + p.split_rows)
+            acc = np.zeros((t, t), c.dtype)
+            total = 0
+            for chunk in range(r_begin, r_end, 256):
+                r = np.arange(chunk, min(chunk + 256, r_end))
+                ok = ((mask[r, ti // 32] >> np.uint32(ti % 32)) & 1).astype(bool)
+                ok &= ((mask[r, tj // 32] >> np.uint32(tj % 32)) & 1).astype(bool)
+                for row in r[ok]:
+                    acc += np.outer(cz[row, ti * t:(ti + 1) * t], cz[row, tj * t:(tj + 1) * t])
+                total += int(ok.sum())
+            flags[pair, split] = total > 0
+            if total:
+                partials[pair, split] = acc
+            rows[pair] += total
+    # Pass 3: flagged partials summed in split order; tile and mirror written.
+    s = np.full((m, m), np.nan, c.dtype)
+    for pair in range(p.pairs):
+        ti, tj = _gram.lower_pair(pair)
+        acc = np.zeros((t, t), c.dtype)
+        for split in range(p.splits):
+            if flags[pair, split]:
+                acc = acc + partials[pair, split]
+        i = np.arange(ti * t, min(m, (ti + 1) * t))
+        j = np.arange(tj * t, min(m, (tj + 1) * t))
+        s[np.ix_(i, j)] = acc[:len(i), :len(j)]
+        s[np.ix_(j, i)] = acc[:len(i), :len(j)].T
+    return s, rows
+
+
+def band_gram_tile_walk_model(w_rows, local_pose):
+    """csrc/band_gram.cu on (w_rows, local_pose): returns (z, s, rows
+    multiplied per (group, lower panel pair))."""
+    n_group, k_rows, c6 = w_rows.shape
+    n_slot = c6 // 6
+    p = band_gram.plan(n_group, k_rows)
+    pw, width = band_gram.PANEL, band_gram.WIDTH
+    cols = 6 * pw
+    # z blocks: every row written once; each entry sums its slots in order.
+    z = np.zeros((n_group, k_rows, band_gram.WBAND), w_rows.dtype)
+    for sl in range(n_slot):
+        lp = local_pose[..., sl]
+        gg, rr = np.nonzero((lp >= 0) & (lp < width))
+        for c in range(6):
+            z[gg, rr, c * width + lp[gg, rr]] += w_rows[gg, rr, 6 * sl + c]
+
+    def bits(g, r, panel):
+        d = local_pose[g, r] - panel * pw
+        return np.isin(np.arange(pw), d[(d >= 0) & (d < pw)])
+
+    def z_slice(g, r, panel):
+        """(6, 16) z slice of a panel built from w_rows, never from z."""
+        out = np.zeros((6, pw), w_rows.dtype)
+        for sl in range(n_slot):
+            d = local_pose[g, r, sl] - panel * pw
+            if 0 <= d < pw:
+                out[:, d] += w_rows[g, r, 6 * sl:6 * sl + 6]
+        return out
+
+    flags = np.zeros((n_group, band_gram.PAIRS, p.splits), bool)
+    partials = np.zeros((n_group, band_gram.PAIRS, p.splits, cols, cols), w_rows.dtype)
+    rows = np.zeros((n_group, band_gram.PAIRS), np.int64)
+    for g in range(n_group):
+        for pair in range(band_gram.PAIRS):
+            pi, pj = _gram.lower_pair(pair)
+            for split in range(p.splits):
+                r_begin = split * p.split_rows
+                r_end = min(k_rows, r_begin + p.split_rows)
+                acc = np.zeros((cols, cols), w_rows.dtype)
+                total = 0
+                for chunk in range(r_begin, r_end, 256):
+                    for r in range(chunk, min(chunk + 256, r_end)):
+                        bi, bj = bits(g, r, pi), bits(g, r, pj)
+                        if not (bi.any() and bj.any()):
+                            continue
+                        total += 1
+                        # Warp w (poses p = 2w, 2w + 1 of panel pi) adds the
+                        # row's products for its threads (p, q) if the row
+                        # has a live slot at 2w or 2w + 1.
+                        warp_live = bi.reshape(8, 2).any(1).repeat(2)
+                        rows_live = np.tile(warp_live, 6)[:, None]
+                        prod = np.outer(z_slice(g, r, pi).ravel(), z_slice(g, r, pj).ravel())
+                        acc += np.where(rows_live, prod, 0)
+                flags[g, pair, split] = total > 0
+                if total:
+                    partials[g, pair, split] = acc
+                rows[g, pair] += total
+    s = np.full((n_group, band_gram.WBAND, band_gram.WBAND), np.nan, w_rows.dtype)
+    comp = np.arange(6)[:, None] * width
+    for g in range(n_group):
+        for pair in range(band_gram.PAIRS):
+            pi, pj = _gram.lower_pair(pair)
+            acc = np.zeros((cols, cols), w_rows.dtype)
+            for split in range(p.splits):
+                if flags[g, pair, split]:
+                    acc = acc + partials[g, pair, split]
+            # Tile row c*16 + p is s row c*128 + 16 pi + p (c-major).
+            i = (comp + pi * pw + np.arange(pw)).ravel()
+            j = (comp + pj * pw + np.arange(pw)).ravel()
+            s[g][np.ix_(i, j)] = acc
+            s[g][np.ix_(j, i)] = acc.T
+    return z, s, rows
+
+
+def _captured(name, size):
+    """The operands one CPU compute_step hands the ops wrapper ``name``."""
+    from obvi_slam_tpu_torch import compute_step, synthetic_problem
+
+    seen = []
+    inner = getattr(ops, name)
+
+    def spy(*args):
+        seen.append(args)
+        return inner(*args)
+
+    setattr(ops, name, spy)
+    try:
+        state, _, cams, tables, plan, free, weights, huber = synthetic_problem(**size, device="cpu")
+        compute_step(state, cams, tables, plan, free, weights, 1e4, huber)
+    finally:
+        setattr(ops, name, inner)
+    assert len(seen) == 1
+    return tuple(npy(a) for a in seen[0])
+
+
+def _syrk_case(name):
+    rng = np.random.default_rng(3)
+    if name == "dense-ragged":
+        return rng.normal(size=(300, 200)) + np.where(rng.uniform(size=(300, 200)) < 0.5, 3, -3)
+    if name == "sparse-ragged":
+        c = rng.normal(size=(700, 150)) * (rng.uniform(size=(700, 150)) < 0.03)
+        c[::7] = 0.0  # all-zero rows
+        return c
+    if name in ("captured", "captured-permuted"):
+        (c,) = _captured("syrk_gram", dict(
+            n_poses=64, n_points=1024, n_objects=8, obs_per_point=4, obs_per_object=6))
+        return c[rng.permutation(len(c))] if name.endswith("permuted") else c
+    if name == "K=0":
+        return np.zeros((0, 70))
+    return rng.normal(size=(50, 10))  # "M<64": one ragged tile
+
+
+@pytest.mark.parametrize(
+    "case", ["dense-ragged", "sparse-ragged", "captured", "captured-permuted", "K=0", "M<64"]
+)
+def test_syrk_tile_walk_model_matches_plain(case):
+    c = _syrk_case(case)
+    s, rows = syrk_tile_walk_model(c)
+    ref = npy(syrk.syrk_gram_plain(torch.from_numpy(c)))
+    assert np.array_equal(s, s.T)
+    np.testing.assert_allclose(s, ref, rtol=1e-12, atol=1e-12 * max(np.abs(ref).max(initial=0), 1))
+    t = syrk.TILE
+    panel = np.stack([(c[:, i:i + t] != 0).any(1) for i in range(0, c.shape[1], t)], 1)
+    pairs = [_gram.lower_pair(x) for x in range(len(rows))]
+    np.testing.assert_array_equal(rows, [(panel[:, i] & panel[:, j]).sum() for i, j in pairs])
+
+
+def _band_case(name):
+    if name == "edge":
+        w_rows, local = _band_inputs(2, 600, 6, np.float64, seed=5)
+        rows = np.arange(600) % 8
+        local[:, rows == 6, 0] = -1  # dead slots outside [0, 128) other than 128
+        local[:, rows == 6, -1] = 200
+        return w_rows, local
+    if name == "captured":
+        return _captured("band_zbuild_gram", dict(
+            n_poses=256, n_points=384, n_objects=4, obs_per_point=6, obs_per_object=6))
+    if name == "all-dead":
+        w_rows, local = _band_inputs(1, 40, 3, np.float64, seed=6)
+        return w_rows, np.full_like(local, 128)
+    return np.zeros((2, 0, 36)), np.zeros((2, 0, 6), np.int32)  # "K=0"
+
+
+@pytest.mark.parametrize("case", ["edge", "captured", "all-dead", "K=0"])
+def test_band_gram_tile_walk_model_matches_plain(case):
+    w_rows, local = _band_case(case)
+    z, s, rows = band_gram_tile_walk_model(w_rows, local)
+    z_ref, s_ref = (npy(x) for x in band_gram.band_zbuild_gram_plain(
+        torch.from_numpy(w_rows), torch.from_numpy(local)))
+    dead = ((local < 0) | (local >= band_gram.WIDTH)).all(-1)
+    assert np.array_equal(z[dead], np.zeros_like(z[dead]))
+    assert np.array_equal(s, s.transpose(0, 2, 1))
+    np.testing.assert_allclose(z, z_ref, rtol=1e-12, atol=0)
+    atol = 1e-12 * max(np.abs(s_ref).max(initial=0), 1)
+    np.testing.assert_allclose(s, s_ref, rtol=1e-12, atol=atol)
+    hit = np.stack([((local >= q * band_gram.PANEL) & (local < (q + 1) * band_gram.PANEL))
+                    .any(-1) for q in range(band_gram.PANELS)], -1)  # (G, K, panels)
+    pairs = [_gram.lower_pair(x) for x in range(band_gram.PAIRS)]
+    np.testing.assert_array_equal(
+        rows, np.stack([(hit[..., i] & hit[..., j]).sum(1) for i, j in pairs], -1))
+
+
+def test_gram_plans_fill_the_card_at_the_main_path_shapes():
+    """At the window's C (12288 x 384) and the global problem's operands
+    (G = 4, K = 3840), each gram launches more blocks than the H100's 132
+    SMs; splits cover every row; K = 0 launches no gram block."""
+    p4 = syrk.plan(12288, 384)
+    assert (p4.tiles, p4.pairs, p4.words, p4.splits, p4.split_rows) == (6, 21, 1, 48, 256)
+    assert p4.pairs * p4.splits == 1008 and p4.splits * p4.split_rows >= 12288
+    p3 = band_gram.plan(4, 3840)
+    assert (p3.splits, p3.split_rows, band_gram.PAIRS * p3.splits * 4) == (8, 512, 1152)
+    assert p3.splits * p3.split_rows >= 3840 > (p3.splits - 1) * p3.split_rows
+    assert syrk.plan(0, 70).splits == band_gram.plan(2, 0).splits == 0
+    for n in (1, 6, 8):  # the gram grid's diagonal-first order covers each pair once
+        pairs = n * (n + 1) // 2
+        order = [_gram.diag_pair(t, n) for t in range(pairs)]
+        assert sorted(order) == sorted(_gram.lower_pair(t) for t in range(pairs))
+        assert [i - j for i, j in order] == sorted(i - j for i, j in order)
+    big = syrk.plan(10**6, 4096)  # partial tiles stay capped
+    assert big.pairs * big.splits <= syrk.MAX_PARTIALS
+    assert big.splits * big.split_rows >= 10**6
