@@ -6,15 +6,18 @@ Run from the repository root with one visible card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``obvi_slam_tpu_torch/ops/csrc`` with nvcc
-(one nvcc per source, all at once) and holds each kernel against its plain
+(one nvcc per source, all at once), prints each kernel's registers and
+spills as ptxas reports them, and holds each kernel against its plain
 PyTorch version, in f32 and f64, at the shapes the main path gives it: K1
-(reprojection) and K2 (bounding box) at the local-BA window's tables, K3
-(banded z build + group gram) at the global problem's operands and K4 (syrk
-gram) at the window's point gram; K3 and K4 also on operands off the main
-path (dense and permuted C, local poses across the whole window, repeated
-poses, dead slots and rows, ragged and empty shapes), twice bit for bit, with
-the blocks each launches and the rows each output tile multiplies. It checks
-one f32 step with the kernels against an f64 step of the plain versions on
+(reprojection) and K2 (bounding box) at both phases' tables, also at a
+ragged factor count, n = 1, n = 0, with every row masked, twice bit for bit
+and (K1, f64) at a camera depth of exactly 0; K3 (banded z build + group
+gram) at the global problem's operands and K4 (syrk gram) at the window's
+point gram; K3 and K4 also on operands off the main path (dense and
+permuted C, local poses across the whole window, repeated poses, dead slots
+and rows, ragged and empty shapes), twice bit for bit, with the blocks each
+launches and the rows each output tile multiplies. It checks one f32 step
+with the kernels against an f64 step of the plain versions on
 both problems. Then it drives
 the main path, two phases, each with the launch counts reset just before it:
 
@@ -28,7 +31,9 @@ the main path, two phases, each with the launch counts reset just before it:
     through K1, K2 and K4;
 
 each checked against an f64 run of the plain versions. It prints LM
-iterations/s, the kernels' times and launch counts, a profile of each phase,
+iterations/s, the kernels' times, bounds and launch counts (K1 and K2 also
+with the device kernels per wrapper call, which must be 1, and the launch
+floor: a one-element ``torch.add``), a profile of each phase,
 one JSON line describing the kernels, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Any failed check raises:
 the exit code is then non-zero and the last line is not printed. There is no
@@ -39,6 +44,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -55,6 +61,8 @@ import obvi_slam_tpu_torch as ot  # noqa: E402
 from obvi_slam_tpu_torch import factors as fac  # noqa: E402
 from obvi_slam_tpu_torch import ops  # noqa: E402
 from obvi_slam_tpu_torch.ops import _build, band_gram, syrk  # noqa: E402
+from obvi_slam_tpu_torch.ops import bbox as k_bbox  # noqa: E402
+from obvi_slam_tpu_torch.ops import reproj as k_reproj  # noqa: E402
 from obvi_slam_tpu_torch.ops._gram import lower_pair  # noqa: E402
 from obvi_slam_tpu_torch.solver import (  # noqa: E402
     TERMINATION_NAMES,
@@ -77,8 +85,12 @@ DEVICE = "cuda"
 # (non-tensor) float32 flop/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-# Floating-point operations per live factor, counted from the kernel sources.
+# Floating-point operations per live factor of the function (the kernels'
+# per-lane and per-factor recomputation of the rotation and conic not counted).
 FLOPS_PER_FACTOR = {"reproj": 212, "bbox": 3360}
+# Factors per block of K1 and K2, and the shapes of their outputs' rows.
+FACTORS_PER_BLOCK = {"reproj": k_reproj.THREADS, "bbox": k_bbox.FACTORS_PER_BLOCK}
+OUT_ROWS = {"reproj": ((2,), (2, 6), (2, 3)), "bbox": ((4,), (4, 7), (4, 6))}
 KERNELS = {
     "reproj": dict(
         source="obvi_slam_tpu_torch/ops/csrc/reproj.cu",
@@ -123,50 +135,66 @@ def preconditions():
     assert torch.get_float32_matmul_precision() == "highest"
 
 
+def ptxas_report(log):
+    """[(kernel entry, registers line, spill stores, spill loads)] from an
+    nvcc -Xptxas -v log."""
+    entries, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:  # ..._cu_<hash><length>name_kernel[_part]I<f|d>E...: name<float|double>
+            short = re.search(r"((?:[a-z]+_)+kernel(?:_[a-z]+)?)I([fd])E", m.group(1))
+            name = (f"{short.group(1)}<{'float' if short.group(2) == 'f' else 'double'}>"
+                    if short else m.group(1)[:60])
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        if "Used" in line and "registers" in line and name is not None:
+            entries.append((name, line.split(":", 1)[-1].strip(), *spills))
+            name, spills = None, (0, 0)
+    return entries
+
+
 def build():
+    """Builds every kernel; prints ptxas' registers and spills per kernel
+    entry and raises if K1 or K2 spills."""
     t0 = time.perf_counter()
     logs = _build.build()
     print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
-    for name, log in sorted(logs.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    for lib, log in sorted(logs.items()):
+        for name, regs, stores, loads in ptxas_report(log):
+            print(f"  ptxas {lib}: {name}: {regs}; spill stores {stores} B, loads {loads} B")
+            if lib in ("reproj", "bbox") and (stores or loads):
+                raise AssertionError(f"ptxas: {name} spills ({stores} B stores, {loads} B loads)")
 
 
 # ---- kernels against their plain versions --------------------------------
-
-
-def _padded_with_garbage(table, n_extra):
-    """The table plus ``n_extra`` masked rows copied from live rows."""
-    fields = {}
-    for name, col in table._asdict().items():
-        extra = torch.zeros_like(col[:n_extra]) if name == "mask" else col[:n_extra]
-        fields[name] = torch.cat([col, extra]).contiguous()
-    return type(table)(**fields)
 
 
 def _compare(name, kernel_out, plain_out, dtype, live=None, gram=False):
     """Max abs error over the outputs; raises past the stated tolerance: f64
     rtol 1e-9 with an absolute floor of 1e-11 (for the grams, of 1e-12 of the
     output's largest entry, where long sums cancel), f32 1e-4 of each
-    output's largest entry. With ``live``, masked rows must be exactly 0."""
+    output's largest entry. With ``live``, masked rows must be exactly 0. A
+    NaN or Inf fails unless the plain version has the same value there."""
     worst = 0.0
     for k, (a, b) in enumerate(zip(kernel_out, plain_out)):
         if live is not None and not bool((a[~live] == 0).all()):
             raise AssertionError(f"{name} output {k}: masked rows not exactly zero")
-        err = (a - b).abs()
+        same = (a == b) | (a.isnan() & b.isnan())
+        err = torch.where(same, torch.zeros_like(a), (a - b).abs()).nan_to_num(nan=math.inf)
         worst = max(worst, float(err.max()))
+        b_abs = b.abs().nan_to_num(nan=0.0, posinf=0.0)  # tolerances from finite entries
         if dtype == torch.float64:
-            floor = max(1e-11, 1e-12 * float(b.abs().max())) if gram else 1e-11
-            bad = err > floor + 1e-9 * b.abs()
+            floor = max(1e-11, 1e-12 * float(b_abs.max())) if gram else 1e-11
+            bad = err > floor + 1e-9 * b_abs
             if bool(bad.any()):
                 raise AssertionError(
                     f"{name} f64 output {k}: {int(bad.sum())} entries past rtol 1e-9, "
                     f"atol {floor:.1e} (max abs err {float(err.max()):.3e})"
                 )
         else:
-            limit = 1e-4 * float(b.abs().max())
-            if float(err.max()) > limit:
+            limit = 1e-4 * float(b_abs.max())
+            if not float(err.max()) <= limit:
                 raise AssertionError(
                     f"{name} f32 output {k}: max abs err {float(err.max()):.3e} > {limit:.3e}"
                 )
@@ -185,22 +213,53 @@ def problem(dtype, size=WINDOW):
     return ot.synthetic_problem(**size, dtype=dtype, device=DEVICE)
 
 
-def check_kernels(np_dtype):
-    """K1 and K2 against their plain versions at window shapes; returns the
-    max abs error per kernel."""
-    state, _, cams, tables, *_ = problem(np_dtype)
-    dtype = state.poses.dtype
-    reproj = _padded_with_garbage(tables.reproj, 300)
-    bbox = _padded_with_garbage(tables.bbox, 30)
-    errs = {}
-    out_k = ops.reproj_residuals_and_jac(state, cams, reproj)
-    out_p = fac.reproj_residuals_and_jac_fast(state, cams, reproj)
+def _ragged(table, n_extra, block):
+    """The table plus ``n_extra`` (or one more) masked rows that copy live
+    rows (garbage the kernels must not read into the outputs), at a row count
+    that is not a multiple of the kernel's factors per block."""
+    if (table.capacity + n_extra) % block == 0:
+        n_extra += 1
+    rows = torch.arange(n_extra, device=table.mask.device) % table.capacity
+    fields = {}
+    for name, col in table._asdict().items():
+        extra = torch.zeros_like(col[rows]) if name == "mask" else col[rows]
+        fields[name] = torch.cat([col, extra]).contiguous()
+    return type(table)(**fields)
+
+
+def _rows(table, n, live=True):
+    """Copies of the first ``n`` rows; with ``live`` False, every row masked."""
+    fields = {name: col[:n].clone() for name, col in table._asdict().items()}
+    if not live:
+        fields["mask"] = torch.zeros_like(fields["mask"])
+    return type(table)(**fields)
+
+
+def _factor_fns(name):
+    if name == "reproj":
+        return ops.reproj_residuals_and_jac, fac.reproj_residuals_and_jac_fast
+    return ops.bbox_residuals_and_jac, fac.bbox_residuals_and_jac
+
+
+def _factor_case(name, state, cams, table, dtype, label):
+    """K1 or K2 against its plain version on one table; masked rows exactly
+    0. At n = 0 only the output shapes (the plain K2's vmap refuses an empty
+    batch). Returns the max abs error."""
+    wrapper, plain = _factor_fns(name)
+    out_k = wrapper(state, cams, table)
     torch.cuda.synchronize()
-    errs["reproj"] = _compare("reproj", out_k, out_p, dtype, reproj.mask)
-    out_k = ops.bbox_residuals_and_jac(state, cams, bbox)
-    out_p = fac.bbox_residuals_and_jac(state, cams, bbox)
-    torch.cuda.synchronize()
-    errs["bbox"] = _compare("bbox", out_k, out_p, dtype, bbox.mask)
+    n = table.capacity
+    if n == 0:
+        shapes = [tuple(x.shape) for x in out_k]
+        if shapes != [(0,) + rows for rows in OUT_ROWS[name]]:
+            raise AssertionError(f"{name} {label}: output shapes {shapes}")
+        return 0.0
+    return _compare(f"{name} {label}", out_k, plain(state, cams, table), dtype, table.mask)
+
+
+def _check_saturated(state, cams, bbox, dtype):
+    """K2 with object 0 around pose 0's camera: its live rows must give
+    invalid_error and exactly zero Jacobians, as the plain version."""
     sat = _saturated(state)
     out_k = ops.bbox_residuals_and_jac(sat, cams, bbox)
     out_p = fac.bbox_residuals_and_jac(sat, cams, bbox)
@@ -211,12 +270,80 @@ def check_kernels(np_dtype):
     if not (bool((out_k[0][invalid] == 1e6).all()) and bool((out_k[1][invalid] == 0).all())
             and bool((out_k[2][invalid] == 0).all())):
         raise AssertionError("bbox kernel: invalid rows not saturated with zero Jacobians")
-    errs["bbox"] = max(errs["bbox"], _compare("bbox saturated", out_k, out_p, dtype, bbox.mask))
-    print(
-        f"kernels vs plain {str(dtype).split('.')[-1]}: reproj max abs err "
-        f"{errs['reproj']:.3e}, bbox max abs err {errs['bbox']:.3e} "
-        f"({int(invalid.sum())} saturated rows) - ok"
+    return _compare("bbox saturated", out_k, out_p, dtype, bbox.mask), int(invalid.sum())
+
+
+def check_depth_zero():
+    """K1 in f64 at a camera depth of exactly 0: a zero pose, an identity
+    camera and the point at the camera centre. The plain version maps
+    |z| < 1e-300 to 1e-300, so its outputs are finite; the kernel must agree."""
+    dt = torch.float64
+    zeros = lambda *shape: torch.zeros(shape, dtype=dt, device=DEVICE)  # noqa: E731
+    state = ot.types.BAState(poses=zeros(1, 6), points=zeros(1, 3), objects=zeros(1, 7))
+    cams = ot.types.make_camera_bundle(
+        np.eye(3)[None], np.zeros((1, 3)), [500.0], [500.0], [320.0], [240.0], np.float64,
+        DEVICE,
     )
+    idx = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    f = ot.types.ReprojectionFactors(
+        pose_idx=idx, point_idx=idx.clone(), cam_idx=idx.clone(),
+        rect_obs=torch.tensor([[0.25, -0.5]], dtype=dt, device=DEVICE),
+        multiplier=torch.tensor([[2.0, 3.0]], dtype=dt, device=DEVICE),
+        mask=torch.ones(1, dtype=torch.bool, device=DEVICE),
+    )
+    out_k = ops.reproj_residuals_and_jac(state, cams, f)
+    out_p = fac.reproj_residuals_and_jac_fast(state, cams, f)
+    torch.cuda.synchronize()
+    for what, out in (("kernel", out_k), ("plain", out_p)):
+        if not all(bool(torch.isfinite(x).all()) for x in out):
+            raise AssertionError(f"reproj depth 0: non-finite {what} outputs {out}")
+    err = _compare("reproj depth 0", out_k, out_p, dt)
+    print(f"reproj depth 0 (f64): r {out_k[0].tolist()}, J_point[0, 0, 0] "
+          f"{float(out_k[2][0, 0, 0]):.6e}, max abs err {err:.3e} - ok")
+
+
+def check_kernels(np_dtype):
+    """K1 and K2 against their plain versions at both phases' tables (the
+    window's 64 poses and the global problem's 256): each table padded with
+    masked garbage rows to a count that is not a multiple of a block's
+    factors, its first row (n = 1), no rows (n = 0) and every row masked; K2
+    also with a camera inside an ellipsoid (saturated rows); two launches
+    equal bit for bit; in f64 also K1 at depth 0. Returns the max abs error
+    per kernel."""
+    errs = {"reproj": 0.0, "bbox": 0.0}
+    for label, (size, _) in PHASES.items():
+        state, _, cams, tables, *_ = problem(np_dtype, size)
+        dtype = state.poses.dtype
+        notes = []
+        for name, table, n_extra in (("reproj", tables.reproj, 300), ("bbox", tables.bbox, 30)):
+            padded = _ragged(table, n_extra, FACTORS_PER_BLOCK[name])
+            cases = {
+                f"padded to {padded.capacity}": padded,
+                "n=1": _rows(table, 1),
+                "n=0": _rows(table, 0),
+                "all masked": _rows(padded, padded.capacity, live=False),
+            }
+            for case, t in cases.items():
+                errs[name] = max(errs[name], _factor_case(name, state, cams, t, dtype,
+                                                          f"{label} {case}"))
+            wrapper = _factor_fns(name)[0]
+            first, second = wrapper(state, cams, padded), wrapper(state, cams, padded)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(first, second)):
+                raise AssertionError(f"{name} kernel: two launches on the same tables differ")
+            notes.append(f"{name} {padded.capacity} rows ({int(padded.mask.sum())} live, "
+                         f"{padded.capacity % FACTORS_PER_BLOCK[name]} in the last block)")
+        err_sat, n_sat = _check_saturated(
+            state, cams, _ragged(tables.bbox, 30, FACTORS_PER_BLOCK["bbox"]), dtype)
+        errs["bbox"] = max(errs["bbox"], err_sat)
+        print(
+            f"kernels vs plain {str(dtype).split('.')[-1]} at the {label} tables "
+            f"({state.poses.shape[0]} poses; {', '.join(notes)}; n=1, n=0, all masked; "
+            f"{n_sat} saturated bbox rows; two launches bit for bit): reproj max abs err "
+            f"{errs['reproj']:.3e}, bbox {errs['bbox']:.3e} - ok"
+        )
+    if np_dtype == np.float64:
+        check_depth_zero()
     return errs
 
 
@@ -584,42 +711,72 @@ def _gram_flops(z):
     return int((nnz * (nnz + 1)).sum())
 
 
+def device_kernels_per_call(fn, calls=10):
+    """Device operations (kernels, copies, fills) per call of ``fn``, counted
+    by torch.profiler over ``calls`` calls; 0.0 when it sees none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(
+        e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+    ) / calls
+
+
+def launch_floor():
+    """The smallest kernel the card runs, a one-element ``torch.add``: device
+    ms per call (profiler) and back-to-back CUDA-event ms."""
+    x = torch.ones(1, device=DEVICE)
+    return device_ms(lambda: torch.add(x, x)), time_ms(lambda: torch.add(x, x))
+
+
 def time_kernels(errs, phases, gram_ops):
     """Each kernel alone, its wrapper and its plain version, at the main
-    path's shapes in f32: K1 and K2 on the window's tables (prebuilt gather
-    tables), K3 on the global problem's operands, K4 on the window's point
-    gram. Device times come from the profiler; CUDA-event times of
+    path's shapes in f32: K1 and K2 on the window's tables, K3 on the global
+    problem's operands, K4 on the window's point gram. Device times come from
+    the profiler (K1 and K2: all device work of the wrapper call, which must
+    be one kernel; K3 and K4: their kernels); CUDA-event times of
     back-to-back calls are also printed: they measure the host's issue rate
-    when it is the slower side. The grams' bounds count the products of the
-    rows' non-zeros (this run's data); the dense count is printed beside."""
-    from obvi_slam_tpu_torch.ops import bbox as k_bbox
-    from obvi_slam_tpu_torch.ops import reproj as k_reproj
-
+    when it is the slower side. K1's and K2's bounds count the function's
+    inputs (raw poses, points or objects, camera arrays, factor columns) and
+    outputs, each byte once; the bound on the earlier design's inputs, a
+    per-pose (P, 21) [t | R^T | Jr] and a per-camera (C, 12) table built by
+    the wrapper, is printed beside. The grams' bounds count the products of
+    the rows' non-zeros (this run's data); the dense count is printed beside."""
     state, _, cams, tables, *_ = problem(np.float32)
-    pose_tab = k_reproj.pose_table(state.poses)
-    cam_tab = k_reproj.camera_table(cams)
+    cam_r, cam_t = cams.cam_from_robot_r, cams.cam_from_robot_t
     rp, bb = tables.reproj, tables.bbox
     w_rows, local_pose = gram_ops["band_gram"]
     (c,) = gram_ops["syrk"]
     z, _ = band_gram.launch(w_rows, local_pose)
     g_k3, k_k3 = z.shape[0], z.shape[1]
     m_k4 = c.shape[1]
+    floor_ms, floor_event_ms = launch_floor()
+    print(f"launch floor (one-element torch.add): {floor_ms:.5f} ms device time, "
+          f"{floor_event_ms:.4f} ms back-to-back CUDA events")
+    # Bytes of those (P, 21) and (C, 12) tables, in place of poses and camera arrays.
+    old_tables = (state.poses.shape[0] * 21 + cam_t.shape[0] * 12) * state.poses.element_size()
     cases = {
         "reproj": (
-            lambda: k_reproj.launch(pose_tab, state.points, cam_tab, rp),
+            lambda: k_reproj.launch(state.poses, state.points, cam_r, cam_t, rp),
             lambda: ops.reproj_residuals_and_jac(state, cams, rp),
             lambda: fac.reproj_residuals_and_jac_fast(state, cams, rp),
             None,
-            (pose_tab, state.points, cam_tab, rp.pose_idx, rp.point_idx, rp.cam_idx,
-             rp.rect_obs, rp.multiplier, rp.mask),
+            (state.poses, state.points, cam_r, cam_t, rp.pose_idx, rp.point_idx,
+             rp.cam_idx, rp.rect_obs, rp.multiplier, rp.mask),
             FLOPS_PER_FACTOR["reproj"] * int(rp.mask.sum()), None,
         ),
         "bbox": (
-            lambda: k_bbox.launch(state.objects, pose_tab, cam_tab, bb),
+            lambda: k_bbox.launch(state.objects, state.poses, cam_r, cam_t, bb),
             lambda: ops.bbox_residuals_and_jac(state, cams, bb),
             lambda: fac.bbox_residuals_and_jac(state, cams, bb),
             None,
-            (state.objects, pose_tab, cam_tab, bb.obj_idx, bb.pose_idx, bb.cam_idx,
+            (state.objects, state.poses, cam_r, cam_t, bb.obj_idx, bb.pose_idx, bb.cam_idx,
              bb.rect_corners, bb.sqrt_inf, bb.mask),
             FLOPS_PER_FACTOR["bbox"] * int(bb.mask.sum()), None,
         ),
@@ -645,6 +802,13 @@ def time_kernels(errs, phases, gram_ops):
     }
     rows = []
     for name, (kernel, wrapper, plain, library, inputs, flops, dense_flops) in cases.items():
+        factor_kernel = name in FACTORS_PER_BLOCK
+        per_call = None
+        if factor_kernel:
+            per_call = device_kernels_per_call(wrapper)
+            if per_call != 1:
+                raise AssertionError(
+                    f"{name} wrapper: {per_call} device operations per call, expected 1")
         out = kernel()
         out = out if isinstance(out, tuple) else (out,)
         bytes_moved = _nbytes(*inputs) + _nbytes(*out)
@@ -653,7 +817,7 @@ def time_kernels(errs, phases, gram_ops):
         event_ms = time_ms(kernel)
         wrapper_event_ms = time_ms(wrapper)
         plain_event_ms = time_ms(plain, inner=5, reps=5)
-        ms = device_ms(kernel, match=f"{name}_kernel")
+        ms = device_ms(wrapper) if factor_kernel else device_ms(kernel, match=f"{name}_kernel")
         plain_ms = device_ms(plain, calls=5)
         library_ms = None if library is None else device_ms(library, calls=5)
         source = "profiler device time"
@@ -662,17 +826,23 @@ def time_kernels(errs, phases, gram_ops):
             library_ms = None if library is None else time_ms(library, inner=5, reps=5)
         iters = sum(ph["iters"] for ph in phases.values() if ph["launches"][name])
         by_phase = {label: ph["launches"][name] for label, ph in phases.items()}
-        dense = ""
+        extra = ""
         if dense_flops is not None:
-            dense = (f"; dense gram {dense_flops} flop, "
+            extra = (f"; dense gram {dense_flops} flop, "
                      f"{dense_flops / F32_FLOPS_PER_S * 1e6:.3f} us at 67 TFLOP/s")
+        if factor_kernel:
+            old_bytes = bytes_moved - _nbytes(state.poses, cam_r, cam_t) + old_tables
+            extra = (f"; on (P, 21)/(C, 12) pose/camera tables {old_bytes} B, "
+                     f"{max(old_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e6:.4f} us"
+                     f"; {per_call:g} device kernel per wrapper call; launch floor "
+                     f"{floor_ms:.5f} ms")
         library_txt = "none" if library_ms is None else f"{library_ms:.5f} ms"
         print(
             f"kernel {name}: {ms:.5f} ms per launch, plain version {plain_ms:.5f} ms per "
             f"call, library {library_txt} ({source}); back-to-back CUDA events: kernel "
             f"{event_ms:.4f} ms, wrapper {wrapper_event_ms:.4f} ms, plain "
-            f"{plain_event_ms:.4f} ms; bound {max(byte_ms, flop_ms) * 1e3:.3f} us "
-            f"({bytes_moved} B at 3.35 TB/s, {flops} flop{dense}); launches {by_phase}, "
+            f"{plain_event_ms:.4f} ms; bound {max(byte_ms, flop_ms) * 1e3:.4f} us "
+            f"({bytes_moved} B at 3.35 TB/s, {flops} flop{extra}); launches {by_phase}, "
             f"{launches[name] / iters:.2f} per LM iteration"
         )
         row = dict(
@@ -687,6 +857,8 @@ def time_kernels(errs, phases, gram_ops):
         )
         if dense_flops is not None:
             row["dense_flop_bound_ms"] = dense_flops / F32_FLOPS_PER_S * 1e3
+        if factor_kernel:
+            row.update(device_kernels_per_call=per_call, launch_floor_ms=floor_ms)
         rows.append(row)
     return rows
 

@@ -479,3 +479,198 @@ def test_gram_plans_fill_the_card_at_the_main_path_shapes():
     big = syrk.plan(10**6, 4096)  # partial tiles stay capped
     assert big.pairs * big.splits <= syrk.MAX_PARTIALS
     assert big.splits * big.split_rows >= 10**6
+
+
+# ---- numpy models of the factor kernels' lane map and staged stores --------
+# K2 (csrc/bbox.cu) runs a half-warp per factor, lane k < 7 on column k of
+# J_obj, lane 7 + m on column m of J_pose, lane 13 on the residual; each lane
+# stages its 4 values in the block's records, which the block writes back as
+# its contiguous output slices. K1 (csrc/reproj.cu) stages each thread's 20
+# outputs the same way. The models below follow that index arithmetic and
+# must reassemble the plain versions' outputs exactly. They check the lane
+# map, the record offsets and the write-back (16-byte body, ragged tail)
+# only, not the CUDA code: chip_smoke.py holds the kernels themselves against
+# the plain versions on the card.
+
+import re  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+from obvi_slam_tpu_torch.ops import bbox as k_bbox  # noqa: E402
+from obvi_slam_tpu_torch.ops import reproj as k_reproj  # noqa: E402
+
+_CSRC = Path(k_reproj.__file__).resolve().parent / "csrc"
+
+
+def stage_store_model(dst, offset, src, count, threads, vec):
+    """factor_common.cuh::store_slice: thread t writes 16-byte vectors (vec
+    values) t, t + threads, ... of the body, then values body + t, ... of the
+    ragged tail.
+    Returns how often each value of dst[offset:offset + count] was written."""
+    written = np.zeros(count, np.int64)
+    body = count // vec
+    for t in range(threads):
+        for v in range(t, body, threads):
+            dst[offset + v * vec:offset + (v + 1) * vec] = src[v * vec:(v + 1) * vec]
+            written[v * vec:(v + 1) * vec] += 1
+        for k in range(body * vec + t, count, threads):
+            dst[offset + k] = src[k]
+            written[k] += 1
+    return written
+
+
+def bbox_lane_values(r, j_obj, j_pose, f):
+    """The (16, 4) values of factor f's lanes (NaN for the idle lanes 14-15)."""
+    lanes = np.full((k_bbox.LANES, 4), np.nan)
+    for lane in range(k_bbox.LANES):
+        if lane < 7:
+            lanes[lane] = j_obj[f, :, lane]
+        elif lane < k_bbox.RESIDUAL_LANE:
+            lanes[lane] = j_pose[f, :, lane - 7]
+        elif lane == k_bbox.RESIDUAL_LANE:
+            lanes[lane] = r[f]
+    return lanes
+
+
+def bbox_stage_model(r, j_obj, j_pose, vec):
+    """csrc/bbox.cu's lane map, records and write-back, block by block."""
+    n, per = r.shape[0], k_bbox.FACTORS_PER_BLOCK
+    threads = k_bbox.LANES * per
+    outs = [np.full(n * w, np.nan) for w in (4, 28, 24)]
+    written = [np.zeros(n * w, np.int64) for w in (4, 28, 24)]
+    for f0 in range(0, n, per):
+        nf = min(per, n - f0)
+        recs = [np.full(per * w, np.nan) for w in (4, 28, 24)]
+        for slot in range(nf):
+            lanes = bbox_lane_values(r, j_obj, j_pose, f0 + slot)
+            for lane in range(k_bbox.RESIDUAL_LANE + 1):
+                if lane < 7:
+                    rec, base, stride = recs[1], 28 * slot + lane, 7
+                elif lane < k_bbox.RESIDUAL_LANE:
+                    rec, base, stride = recs[2], 24 * slot + lane - 7, 6
+                else:
+                    rec, base, stride = recs[0], 4 * slot, 1
+                for i in range(4):
+                    rec[base + stride * i] = lanes[lane, i]
+        for out, rec, w, cnt in zip(outs, recs, (4, 28, 24), written):
+            cnt[w * f0:w * (f0 + nf)] += stage_store_model(
+                out, w * f0, rec, w * nf, threads, vec)
+    assert all((c == 1).all() for c in written), "every output value written once"
+    return outs[0].reshape(n, 4), outs[1].reshape(n, 4, 7), outs[2].reshape(n, 4, 6)
+
+
+def reproj_stage_model(r, j_pose, j_point, vec):
+    """csrc/reproj.cu's per-thread records and write-back, block by block."""
+    n, threads = r.shape[0], k_reproj.THREADS
+    widths = (2, 12, 6)
+    outs = [np.full(n * w, np.nan) for w in widths]
+    written = [np.zeros(n * w, np.int64) for w in widths]
+    flat = [r.reshape(n, 2), j_pose.reshape(n, 12), j_point.reshape(n, 6)]
+    for f0 in range(0, n, threads):
+        nf = min(threads, n - f0)
+        for out, src, w, cnt in zip(outs, flat, widths, written):
+            rec = np.full(threads * w, np.nan)
+            for t in range(nf):
+                rec[w * t:w * (t + 1)] = src[f0 + t]
+            cnt[w * f0:w * (f0 + nf)] += stage_store_model(
+                out, w * f0, rec, w * nf, threads, vec)
+    assert all((c == 1).all() for c in written), "every output value written once"
+    return outs[0].reshape(n, 2), outs[1].reshape(n, 2, 6), outs[2].reshape(n, 2, 3)
+
+
+def test_factor_kernel_constants_match_sources():
+    """The Python twins of the kernels' launch constants."""
+    def constexpr(src, name):
+        text = (_CSRC / src).read_text()
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+    assert constexpr("reproj.cu", "kThreads") == k_reproj.THREADS
+    assert constexpr("bbox.cu", "kLanes") == k_bbox.LANES
+    assert constexpr("bbox.cu", "kFactorsPerBlock") == k_bbox.FACTORS_PER_BLOCK
+    assert constexpr("bbox.cu", "kResidualLane") == k_bbox.RESIDUAL_LANE
+    assert k_bbox.RESIDUAL_LANE == 7 + 6 < k_bbox.LANES <= 32
+
+
+def _plain_factor_outputs(n_extra):
+    """Plain K1/K2 outputs on a small problem whose tables get ``n_extra``
+    masked garbage rows: (reproj outputs, bbox outputs) as numpy."""
+    state, _, cams, tables, *_ = jax_problem(
+        n_poses=12, n_points=48, n_objects=4, obs_per_object=10, seed=4)
+    rp = _garbage_padded(tables.reproj, jt.ReprojectionFactors, n_extra)
+    bb = _garbage_padded(tables.bbox, jt.BoundingBoxFactors, n_extra % 7)
+    s, c = to_port(state), to_port(cams)
+    return (tuple(npy(x) for x in fac.reproj_residuals_and_jac_fast(s, c, to_port(rp))),
+            tuple(npy(x) for x in fac.bbox_residuals_and_jac(s, c, to_port(bb))))
+
+
+@pytest.mark.parametrize("vec", [4, 2], ids=["f32", "f64"])
+@pytest.mark.parametrize("n_extra", [0, 37])
+def test_factor_stage_models_reassemble_plain(vec, n_extra):
+    """The lane map and staged records written back block by block give the
+    plain versions' outputs bit for bit, each value written once, with a
+    ragged last block for K1 and K2."""
+    rp_out, bb_out = _plain_factor_outputs(n_extra)
+    n_rp, n_bb = rp_out[0].shape[0], bb_out[0].shape[0]
+    if n_extra:
+        assert n_rp % k_reproj.THREADS and n_bb % k_bbox.FACTORS_PER_BLOCK, "ragged"
+    for got, want in zip(reproj_stage_model(*rp_out, vec), rp_out):
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(bbox_stage_model(*bb_out, vec), bb_out):
+        np.testing.assert_array_equal(got, want)
+
+
+def _pose_rotation_model(w):
+    """factor_common.cuh::pose_rotation for one axis-angle w (numpy f64):
+    R^T = I - a S + b S^2, Jr = I - b S + c S^2."""
+    wx, wy, wz = w
+    theta2 = wx * wx + wy * wy + wz * wz
+    if theta2 < 1e-16:
+        a, b, c = 1 - theta2 / 6, 0.5 - theta2 / 24, 1 / 6 - theta2 / 120
+    else:
+        theta = np.sqrt(theta2)
+        s = np.sin(theta)
+        a, b, c = s / theta, (1 - np.cos(theta)) / theta2, (theta - s) / (theta2 * theta)
+    sk = np.array([[0, -wz, wy], [wz, 0, -wx], [-wy, wx, 0]])
+    s2 = sk @ sk
+    return np.eye(3) - a * sk + b * s2, np.eye(3) - b * sk + c * s2
+
+
+def test_pose_rotation_model_matches_plain_tables():
+    """The kernels' per-factor rotation formulas against the plain versions'
+    R^T and Jr (geometry.exp_so3 / right_jacobian_so3), at large, small
+    (Taylor branch) and zero angles."""
+    rng = np.random.default_rng(11)
+    w = np.concatenate([
+        rng.normal(size=(20, 3)) * 1.5,
+        rng.normal(size=(6, 3)) * 1e-3,
+        rng.normal(size=(4, 3)) * 1e-9,  # theta^2 < 1e-16: Taylor terms
+        np.zeros((1, 3)),
+    ])
+    poses = torch.from_numpy(np.concatenate([rng.normal(size=(len(w), 3)), w], 1))
+    rt, jr = (npy(x) for x in fac.pose_rotation_tables(poses))
+    for k, wk in enumerate(w):
+        rt_k, jr_k = _pose_rotation_model(wk)
+        np.testing.assert_allclose(rt_k, rt[k], rtol=1e-12, atol=1e-15)
+        np.testing.assert_allclose(jr_k, jr[k], rtol=1e-12, atol=1e-15)
+
+
+def test_reproj_plain_depth_zero_matches_jax():
+    """At a camera depth of exactly 0 (zero pose, identity camera, point at
+    the camera centre) the plain K1 maps |z| < 1e-300 to 1e-300, as the JAX
+    XLA path: finite outputs, equal to the reference's."""
+    zeros = np.zeros
+    state = jt.BAState(poses=zeros((1, 6)), points=zeros((1, 3)), objects=zeros((1, 7)))
+    cams = jt.CameraBundle(
+        cam_from_robot_r=np.eye(3)[None], cam_from_robot_t=zeros((1, 3)),
+        fx=np.array([500.0]), fy=np.array([500.0]), cx=np.array([320.0]),
+        cy=np.array([240.0]),
+    )
+    idx = zeros(1, np.int32)
+    f = jt.ReprojectionFactors(
+        pose_idx=idx, point_idx=idx, cam_idx=idx, rect_obs=np.array([[0.25, -0.5]]),
+        multiplier=np.array([[2.0, 3.0]]), mask=np.ones(1, bool),
+    )
+    out = fac.reproj_residuals_and_jac_fast(to_port(state), to_port(cams), to_port(f))
+    assert all(np.isfinite(npy(x)).all() for x in out)
+    np.testing.assert_array_equal(npy(out[0]), [[-0.5, 1.5]])
+    np.testing.assert_allclose(npy(out[2])[0, 0, 0], 2.0 / 1e-300, rtol=1e-15)
+    _check_outputs(out, jax_reproj_fast(state, cams, f), K1_TOL, "depth 0")
