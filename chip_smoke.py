@@ -9,17 +9,21 @@ It builds the CUDA kernels from ``obvi_slam_tpu_torch/ops/csrc`` with nvcc
 (one nvcc per source, all at once), prints each kernel's registers and
 spills as ptxas reports them, and holds each kernel against its plain
 PyTorch version, in f32 and f64, at the shapes the main path gives it: K1
-(reprojection) and K2 (bounding box) at both phases' tables, also at a
-ragged factor count, n = 1, n = 0, with every row masked, twice bit for bit
-and (K1, f64) at a camera depth of exactly 0; K3 (banded z build + group
+(reprojection) and K2 (bounding box) at the synthetic phases' tables, also
+at a ragged factor count, n = 1, n = 0, with every row masked, with every
+other row on a second camera at a 0.12 m baseline, twice bit for bit and
+(K1, f64) at a camera depth of exactly 0; K1 also at the session's largest
+(stereo) table; K3 (banded z build + group
 gram) at the global problem's operands and K4 (syrk gram) at the window's
 point gram; K3 and K4 also on operands off the main path (dense and
 permuted C, local poses across the whole window, repeated poses, dead slots
 and rows, ragged and empty shapes), twice bit for bit, with the blocks each
 launches and the rows each output tile multiplies. It checks one f32 step
-with the kernels against an f64 step of the plain versions on
-both problems. Then it drives
-the main path, two phases, each with the launch counts reset just before it:
+with the kernels against an f64 step of the plain versions on the three
+synthetic problems, and the f64 band-solve step against the f64 dense step
+at 1,024 poses (cyclic reduction) and at 256 poses with the gate forced on
+(the sequential tile loop). Then it drives the main path, four phases, each with the
+launch counts reset just before it:
 
   - ``global``: the two-phase global bundle adjustment of 256 poses x 4096
     points x 32 objects (the reference's bench problem, ``bench.py:95-105``),
@@ -29,15 +33,30 @@ the main path, two phases, each with the launch counts reset just before it:
     4096 points x 32 objects (the reference's default window of 50 frames at
     power-of-two capacity, with the bench problem's densities), dense,
     through K1, K2 and K4;
+  - ``scale_1024``: the two-phase global bundle adjustment of 1024 poses x
+    16384 points x 64 objects (the reference's scale tier,
+    ``bench.py:401-408``), through K1, K2, K3 and the block-tridiagonal +
+    Woodbury band solve (counted by a spy); also a fixed 10-iteration solve;
 
-each checked against an f64 run of the plain versions. It prints LM
-iterations/s, the kernels' times, bounds and launch counts (K1 and K2 also
-with the device kernels per wrapper call, which must be 1, and the launch
-floor: a one-element ``torch.add``), a profile of each phase,
-one JSON line describing the kernels, the card's name and power limit, and
-as its last line ``{"ok": true, "device": {...}}``. Any failed check raises:
-the exit code is then non-zero and the last line is not printed. There is no
-CPU path.
+each checked against an f64 run of the plain versions (phase 2 with the f32
+run's outlier selection) and against an f64 run that selects its own,
+whose selection may differ in at most 5% of the excluded factors; and
+
+  - ``session``: ``OfflineProblemRunner.run_optimization`` on a 64-frame
+    visual-only stereo session (``synthetic_session``) at the reference's
+    default config (window 50, global BA every 30 frames), in f32 through K1
+    and K4, checked by its trajectory error against the odometry's and
+    against an f64 run of the plain versions.
+
+It prints LM iterations/s, the session's frames/s and ms per frame, the
+kernels' times, bounds and launch counts (K1 and K2 also with the device
+kernels per wrapper call, which must be 1, and the launch floor: a
+one-element ``torch.add``), each kernel also at the larger phases' shapes,
+a profile of each synthetic phase (with the band solve's share at 1,024
+poses) and of the session's last 8 frames, one JSON line describing the
+kernels, the card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
+then non-zero and the last line is not printed. There is no CPU path.
 """
 
 from __future__ import annotations
@@ -64,6 +83,11 @@ from obvi_slam_tpu_torch.ops import _build, band_gram, syrk  # noqa: E402
 from obvi_slam_tpu_torch.ops import bbox as k_bbox  # noqa: E402
 from obvi_slam_tpu_torch.ops import reproj as k_reproj  # noqa: E402
 from obvi_slam_tpu_torch.ops._gram import lower_pair  # noqa: E402
+from obvi_slam_tpu_torch.timing import TimerRegistry  # noqa: E402
+from obvi_slam_tpu_torch.runner import visual_frontend_for  # noqa: E402
+from obvi_slam_tpu_torch.solver import band_solve  # noqa: E402
+from obvi_slam_tpu_torch.solver import schur as schur_mod  # noqa: E402
+from obvi_slam_tpu_torch.solver import two_phase as tp_mod  # noqa: E402
 from obvi_slam_tpu_torch.solver import (  # noqa: E402
     TERMINATION_NAMES,
     LMParams,
@@ -75,11 +99,32 @@ from obvi_slam_tpu_torch.solver import (  # noqa: E402
 
 WINDOW = dict(n_poses=64, n_points=4096, n_objects=32, obs_per_point=6, obs_per_object=12, seed=0)
 GLOBAL = dict(WINDOW, n_poses=256)
-# Phases of the main path and the kernels each must launch.
+SCALE = dict(n_poses=1024, n_points=16384, n_objects=64, obs_per_point=6, obs_per_object=12,
+             seed=0)
+# Synthetic phases of the main path and the kernels each must launch.
 PHASES = {
     "global": (GLOBAL, ("reproj", "bbox", "band_gram")),
     "window": (WINDOW, ("reproj", "bbox", "syrk")),
+    "scale_1024": (SCALE, ("reproj", "bbox", "band_gram")),
 }
+# The phase that must take the band solve (the others must not).
+BAND_SOLVE_PHASE = "scale_1024"
+# The runner session: frames, features (enough that the window's point
+# gram meets K4's gate, 1024 landmark rows) and the kernels it must launch.
+SESSION = dict(n_frames=64, n_features=1200, seed=9)
+SESSION_KERNELS = ("reproj", "syrk")
+# The gram kernels' operands held against their plain versions: (kernel,
+# phase whose compute_step hands them over).
+GRAM_CASES = (("band_gram", "global"), ("band_gram", "scale_1024"), ("syrk", "window"))
+# The band solve against the dense step: (phase, band-solve gate). Auto at
+# 1,024 poses takes cyclic reduction (16 tiles); forced on at 256 poses, the
+# sequential tile loop (4 tiles).
+BAND_CHECKS = (("scale_1024", "auto"), ("global", "on"))
+# The most factor weights in which an f64 run's own outlier selection may
+# differ from the f32 kernel run's, as a share of the factors the f32 run
+# excluded (H100 readings over two runs of the three phases: 0 to 30
+# weights, at most 1.2% of the excluded).
+SELECTION_LIMIT = 0.05
 DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and CUDA-core
 # (non-tensor) float32 flop/s.
@@ -235,6 +280,30 @@ def _rows(table, n, live=True):
     return type(table)(**fields)
 
 
+def _cast(nt, dtype):
+    """The named tuple with its floating-point tensors in ``dtype``."""
+    return type(nt)(*(x.to(dtype) if x.is_floating_point() else x for x in nt))
+
+
+def _two_cameras(cams, table):
+    """``cams`` plus a second camera, rotated 0.05 rad about y and offset by
+    a 0.12 m baseline (the stereo session's), with its own intrinsics; and
+    ``table`` with every other row on that camera."""
+    dt, dev = cams.fx.dtype, cams.fx.device
+    a = 0.05
+    r = torch.tensor([[math.cos(a), 0.0, math.sin(a)], [0.0, 1.0, 0.0],
+                      [-math.sin(a), 0.0, math.cos(a)]], dtype=dt, device=dev)
+    t = torch.tensor([-0.12, 0.01, 0.02], dtype=dt, device=dev)
+    two = type(cams)(
+        cam_from_robot_r=torch.cat([cams.cam_from_robot_r, r[None]]),
+        cam_from_robot_t=torch.cat([cams.cam_from_robot_t, t[None]]),
+        fx=torch.cat([cams.fx, cams.fx[:1] * 1.01]), fy=torch.cat([cams.fy, cams.fy[:1] * 0.99]),
+        cx=torch.cat([cams.cx, cams.cx[:1] + 3.0]), cy=torch.cat([cams.cy, cams.cy[:1] - 2.0]),
+    )
+    cam_idx = (torch.arange(table.capacity, device=dev) % 2).to(table.cam_idx.dtype)
+    return two, table._replace(cam_idx=cam_idx)
+
+
 def _factor_fns(name):
     if name == "reproj":
         return ops.reproj_residuals_and_jac, fac.reproj_residuals_and_jac_fast
@@ -306,10 +375,11 @@ def check_kernels(np_dtype):
     """K1 and K2 against their plain versions at both phases' tables (the
     window's 64 poses and the global problem's 256): each table padded with
     masked garbage rows to a count that is not a multiple of a block's
-    factors, its first row (n = 1), no rows (n = 0) and every row masked; K2
-    also with a camera inside an ellipsoid (saturated rows); two launches
-    equal bit for bit; in f64 also K1 at depth 0. Returns the max abs error
-    per kernel."""
+    factors, its first row (n = 1), no rows (n = 0), every row masked and
+    the padded table with every other row on a second camera with a non-zero
+    extrinsic translation; K2 also with a camera inside an ellipsoid
+    (saturated rows); two launches equal bit for bit; in f64 also K1 at depth
+    0. Returns the max abs error per kernel."""
     errs = {"reproj": 0.0, "bbox": 0.0}
     for label, (size, _) in PHASES.items():
         state, _, cams, tables, *_ = problem(np_dtype, size)
@@ -318,13 +388,14 @@ def check_kernels(np_dtype):
         for name, table, n_extra in (("reproj", tables.reproj, 300), ("bbox", tables.bbox, 30)):
             padded = _ragged(table, n_extra, FACTORS_PER_BLOCK[name])
             cases = {
-                f"padded to {padded.capacity}": padded,
-                "n=1": _rows(table, 1),
-                "n=0": _rows(table, 0),
-                "all masked": _rows(padded, padded.capacity, live=False),
+                f"padded to {padded.capacity}": (cams, padded),
+                "n=1": (cams, _rows(table, 1)),
+                "n=0": (cams, _rows(table, 0)),
+                "all masked": (cams, _rows(padded, padded.capacity, live=False)),
+                "two cameras": _two_cameras(cams, padded),
             }
-            for case, t in cases.items():
-                errs[name] = max(errs[name], _factor_case(name, state, cams, t, dtype,
+            for case, (c, t) in cases.items():
+                errs[name] = max(errs[name], _factor_case(name, state, c, t, dtype,
                                                           f"{label} {case}"))
             wrapper = _factor_fns(name)[0]
             first, second = wrapper(state, cams, padded), wrapper(state, cams, padded)
@@ -338,7 +409,8 @@ def check_kernels(np_dtype):
         errs["bbox"] = max(errs["bbox"], err_sat)
         print(
             f"kernels vs plain {str(dtype).split('.')[-1]} at the {label} tables "
-            f"({state.poses.shape[0]} poses; {', '.join(notes)}; n=1, n=0, all masked; "
+            f"({state.poses.shape[0]} poses; {', '.join(notes)}; n=1, n=0, all masked, "
+            f"two cameras (0.12 m baseline); "
             f"{n_sat} saturated bbox rows; two launches bit for bit): reproj max abs err "
             f"{errs['reproj']:.3e}, bbox {errs['bbox']:.3e} - ok"
         )
@@ -368,41 +440,53 @@ def captured_operands(size, np_dtype, name):
     return seen[0]
 
 
+def _gram_fns(name):
+    """(ops wrapper name, launch, plain version) of a gram kernel."""
+    if name == "band_gram":
+        return "band_zbuild_gram", band_gram.launch, band_gram.band_zbuild_gram_plain
+    return "syrk_gram", syrk.launch, syrk.syrk_gram_plain
+
+
 def check_grams(np_dtype):
-    """K3 at the global problem's operands and K4 at the window's against
-    their plain versions; both grams must come out exactly symmetric and
-    K3's z rows of dead slots exactly 0. Returns (errors, operands)."""
-    w_rows, local_pose = captured_operands(GLOBAL, np_dtype, "band_zbuild_gram")
-    (c,) = captured_operands(WINDOW, np_dtype, "syrk_gram")
-    dtype = w_rows.dtype
-    z, s = band_gram.launch(w_rows, local_pose)
-    out_p = band_gram.band_zbuild_gram_plain(w_rows, local_pose)
-    s4 = syrk.launch(c)
-    torch.cuda.synchronize()
-    dead = (local_pose >= band_gram.WIDTH).all(-1)
-    if not bool((z[dead] == 0).all()):
-        raise AssertionError("band_gram kernel: z rows of dead slots not exactly zero")
-    if not (bool((s == s.transpose(1, 2)).all()) and bool((s4 == s4.T).all())):
-        raise AssertionError("gram kernels: output not exactly symmetric")
-    errs = {
-        "band_gram": _compare("band_gram", (z, s), out_p, dtype, gram=True),
-        "syrk": _compare("syrk", (s4,), (syrk.syrk_gram_plain(c),), dtype, gram=True),
-    }
-    print(
-        f"grams vs plain {str(dtype).split('.')[-1]}: band_gram (w_rows "
-        f"{tuple(w_rows.shape)}, {int(dead.sum())} dead rows) max abs err "
-        f"{errs['band_gram']:.3e} (largest |s| {float(out_p[1].abs().max()):.3e}); syrk "
-        f"(c {tuple(c.shape)}) max abs err {errs['syrk']:.3e} (largest |S| "
-        f"{float(s4.abs().max()):.3e}) - ok"
-    )
-    z2, s2 = band_gram.launch(w_rows, local_pose)
-    s42 = syrk.launch(c)
-    torch.cuda.synchronize()
-    if not (torch.equal(z, z2) and torch.equal(s, s2) and torch.equal(s4, s42)):
-        raise AssertionError("gram kernels: two launches on the same operands differ")
-    print("grams: two launches on the main-path operands equal bit for bit - ok")
-    check_gram_edges(dtype, c)
-    return errs, {"band_gram": (w_rows, local_pose), "syrk": (c,)}
+    """K3 at the global and scale_1024 problems' operands and K4 at the
+    window's against their plain versions; the grams must come out exactly
+    symmetric, K3's z rows of dead slots exactly 0, and two launches equal
+    bit for bit. Returns (errors per kernel, operands per GRAM_CASES entry)."""
+    errs, operands = {}, {}
+    for name, label in GRAM_CASES:
+        wrapper, launch, plain = _gram_fns(name)
+        args = captured_operands(PHASES[label][0], np_dtype, wrapper)
+        dtype = args[0].dtype
+        out = launch(*args)
+        out = out if isinstance(out, tuple) else (out,)
+        out_p = plain(*args)
+        out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+        torch.cuda.synchronize()
+        gram = out[-1]
+        if not bool((gram == gram.transpose(-1, -2)).all()):
+            raise AssertionError(f"{name} ({label}): output not exactly symmetric")
+        note = ""
+        if name == "band_gram":
+            dead = (args[1] >= band_gram.WIDTH).all(-1)
+            if not bool((out[0][dead] == 0).all()):
+                raise AssertionError(f"band_gram ({label}): z rows of dead slots not exactly zero")
+            splits = band_gram.plan(*args[0].shape[:2]).splits
+            note = f", G = {args[0].shape[0]}, {int(dead.sum())} dead rows, {splits} splits"
+        err = _compare(f"{name} ({label})", out, out_p, dtype, gram=True)
+        errs[name] = max(errs.get(name, 0.0), err)
+        again = launch(*args)
+        again = again if isinstance(again, tuple) else (again,)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(out, again)):
+            raise AssertionError(f"{name} ({label}): two launches on the same operands differ")
+        print(
+            f"gram vs plain {str(dtype).split('.')[-1]}: {name} at the {label} operands "
+            f"({tuple(args[0].shape)}{note}) max abs err {err:.3e} (largest |s| "
+            f"{float(out_p[-1].abs().max()):.3e}); two launches bit for bit - ok"
+        )
+        operands[(name, label)] = args
+    check_gram_edges(dtype, operands[("syrk", "window")][0])
+    return errs, operands
 
 
 def band_edge_operands(n_group, k_rows, n_slot, dtype, seed=0):
@@ -512,23 +596,23 @@ def band_tile_rows(local_pose):
 
 
 def gram_tiles(gram_ops):
-    """Prints, per gram kernel at the main path's operands, the blocks of
-    each device kernel as its launcher reported them for one call, and the
+    """Prints, per gram kernel at each of its main-path operands, the blocks
+    of each device kernel as its launcher reported them for one call, and the
     rows each output tile multiplies, counted on the host from the operands.
     Runs outside any timed call."""
-    w_rows, local_pose = gram_ops["band_gram"]
-    (c,) = gram_ops["syrk"]
-    band_gram.launch(w_rows, local_pose)
-    syrk.launch(c)
-    torch.cuda.synchronize()
-    for name, mod, p, rows in (
-        ("band_gram", band_gram, band_gram.plan(*w_rows.shape[:2]),
-         band_tile_rows(local_pose).flatten()),
-        ("syrk", syrk, syrk.plan(*c.shape), syrk_tile_rows(c)),
-    ):
-        rows = rows.double()
-        print(f"{name} blocks launched {dict(mod.last_blocks)} ({p.splits} splits of "
-              f"{p.split_rows} rows); rows per tile over {rows.numel()} tiles: mean "
+    for (name, label), args in gram_ops.items():
+        if name == "band_gram":
+            w_rows, local_pose = args
+            band_gram.launch(w_rows, local_pose)
+            mod, p, rows = band_gram, band_gram.plan(*w_rows.shape[:2]), band_tile_rows(local_pose)
+        else:
+            (c,) = args
+            syrk.launch(c)
+            mod, p, rows = syrk, syrk.plan(*c.shape), syrk_tile_rows(c)
+        torch.cuda.synchronize()
+        rows = rows.flatten().double()
+        print(f"{name} ({label}) blocks launched {dict(mod.last_blocks)} ({p.splits} splits "
+              f"of {p.split_rows} rows); rows per tile over {rows.numel()} tiles: mean "
               f"{float(rows.mean()):.2f}, max {int(rows.max())}, "
               f"{int((rows == 0).sum())} empty")
 
@@ -566,6 +650,68 @@ def check_step(label):
             raise AssertionError(f"{label} f32 step {k} relative error {errs[k]:.3e} > 5e-3")
 
 
+def check_band_vs_dense(label, gate):
+    """One f64 plain step through the band solve against the f64 plain dense
+    step (band solve gate off: the (6P)^2 S and its Cholesky), relative 1e-8
+    (tests/test_band_solve.py:271). At scale_1024 (16 tiles) the auto gate
+    takes the band solve with cyclic reduction; at global (4 tiles) the gate
+    is forced on, as a caller may below 512 poses, and the tiles are factored
+    by the sequential loop."""
+    state, _, cams, tables, plan, free, weights, huber = problem(np.float64, PHASES[label][0])
+    schur_mod._BAND_SOLVE = gate
+    try:
+        with (BandSolveSpy() as spy, Spy(band_solve, "cr_factor") as cr,
+              Spy(band_solve, "block_tridiag_cholesky") as seq):
+            band = ot.compute_step(state, cams, tables, plan, free, weights, 1e4, huber, plain=True)
+        schur_mod._BAND_SOLVE = "off"
+        dense = ot.compute_step(state, cams, tables, plan, free, weights, 1e4, huber, plain=True)
+    finally:
+        schur_mod._BAND_SOLVE = "auto"
+    torch.cuda.synchronize()
+    nb = state.poses.shape[0] // schur_mod.BAND_TP
+    path = "cyclic reduction" if band_solve._use_cyclic_reduction(nb) else "sequential"
+    if (spy.calls, cr.calls + seq.calls) != (1, 1) or (cr.calls == 1) != (path == "cyclic reduction"):
+        raise AssertionError(f"{label} f64 step: {spy.calls} band solves, {cr.calls} cyclic "
+                             f"reduction and {seq.calls} sequential factorizations; expected one "
+                             f"{path}")
+    errs = {name: rel(getattr(band[0], name), getattr(dense[0], name))
+            for name in ("poses", "points", "objects")}
+    errs["model_cost_change"] = abs(float(band[1]) - float(dense[1])) / abs(float(dense[1]))
+    print(f"{label} step f64 plain, band solve ({nb} tiles, {path}, gate {gate}) vs dense "
+          "Cholesky: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    for k, v in errs.items():
+        if not v <= 1e-8:
+            raise AssertionError(f"{label} band vs dense step {k} relative error {v:.3e} > 1e-8")
+
+
+class Spy:
+    """Counts the calls of ``module.name`` while active, and keeps the
+    arguments and the result of the last one."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+
+    def __enter__(self):
+        self.calls, self.operands, self.result = 0, None, None
+        self.inner = getattr(self.module, self.name)
+
+        def spy(*args, **kw):
+            self.calls += 1
+            self.operands = args
+            self.result = self.inner(*args, **kw)
+            return self.result
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+
+def BandSolveSpy():
+    return Spy(band_solve, "woodbury_band_solve")
+
+
 # ---- the main path: two-phase solves --------------------------------------
 
 
@@ -583,6 +729,18 @@ def run_two_phase(problem, plain):
     )
     torch.cuda.synchronize()
     return final, s1, s2, time.perf_counter() - t0
+
+
+def reference_two_phase(problem, weights2):
+    """The two phases of solve_two_phase through the plain versions, phase 2
+    with the given weights."""
+    state, _, cams, tables, plan, free, weights, huber = problem
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, r1 = solve(state, cams, tables, plan, free, weights, LMParams(), huber, plain=True)
+    final, r2 = solve(state, cams, tables, plan, free, weights2, LMParams(), huber, plain=True)
+    torch.cuda.synchronize()
+    return final, r1, r2, time.perf_counter() - t0
 
 
 def check_result(final, summaries, what):
@@ -610,28 +768,60 @@ def main_path_phase(label):
     problem32 = problem(np.float32, size)
     run_two_phase(problem32, plain=False)  # warm-up: allocator, cuBLAS/cuSOLVER handles
 
-    ops.reset_kernel_launches()
-    final, s1, s2, wall = run_two_phase(problem32, plain=False)
-    launches = ops.kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with BandSolveSpy() as spy, Spy(tp_mod, "reweight_on_device") as selection:
+        ops.reset_kernel_launches()
+        final, s1, s2, wall = run_two_phase(problem32, plain=False)
+        launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
 
     check_result(final, (s1, s2), f"{label} f32 kernels")
     iters = s1.num_iterations + s2.num_iterations
     print(f"{label}: {iters} LM iterations in {wall:.4f} s wall, "
-          f"{iters / wall:.2f} LM iterations/s")
+          f"{iters / wall:.2f} LM iterations/s; peak device memory {peak} B")
     for name in expected:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched in the {label} phase")
-    print(f"{label} launches: {launches}")
+    if (spy.calls > 0) != (label == BAND_SOLVE_PHASE):
+        raise AssertionError(f"{label}: {spy.calls} band solves")
+    print(f"{label} launches: {launches}; band solves {spy.calls} "
+          f"({spy.calls / iters:.2f} per LM iteration)")
 
-    problem64 = problem(np.float64, size)
-    final64, r1, r2, wall64 = run_two_phase(problem64, plain=True)
+    # The reference: both phases in f64 through the plain versions, phase 2
+    # with the f32 run's factor selection. Two runs that select their own
+    # outliers at slightly different phase-1 optima can exclude different
+    # factors at the 10% boundary, and then solve different phase-2 problems.
+    weights2 = schur_mod.FactorWeights(*(w.double() for w in selection.result))
+    excluded = int(((problem32[3].reproj.mask) & (weights2.reproj == 0)).sum())
+    final64, r1, r2, wall64 = reference_two_phase(problem(np.float64, size), weights2)
     check_result(final64, (r1, r2), f"{label} f64 plain")
-    print(f"{label} f64 plain: {wall64:.4f} s wall")
-    gap = abs(s2.final_cost - r2.final_cost) / r2.final_cost
-    print(f"{label} final cost f32 kernels vs f64 plain: relative gap {gap:.3e}")
-    if not gap <= 1e-3:
-        raise AssertionError(f"{label} final cost gap {gap:.3e} > 1e-3")
-    return dict(launches=launches, iters=iters, wall=wall)
+    print(f"{label} f64 plain: {wall64:.4f} s wall; phase 2 with the f32 run's selection "
+          f"({excluded} reprojection factors excluded)")
+    for k, (a, b) in enumerate(((s1, r1), (s2, r2)), 1):
+        gap = abs(a.final_cost - b.final_cost) / b.final_cost
+        print(f"{label} phase {k} final cost f32 kernels vs f64 plain: relative gap {gap:.3e}")
+        if not gap <= 1e-3:
+            raise AssertionError(f"{label} phase {k} final cost gap {gap:.3e} > 1e-3")
+    # The independent reference: an f64 plain solve_two_phase that selects
+    # its own outliers. Its selection may differ from the f32 run's in at
+    # most SELECTION_LIMIT of the factors the f32 run excluded; where the two
+    # agree, its phase-2 final cost must lie within 1e-3 as well.
+    with Spy(tp_mod, "reweight_on_device") as own:
+        _, _, own2, _ = run_two_phase(problem(np.float64, size), plain=True)
+    changed = sum(int((a != b).sum()) for a, b in zip(own.result, weights2))
+    own_gap = abs(s2.final_cost - own2.final_cost) / own2.final_cost
+    print(f"{label} f64 plain with its own selection: {changed} factor weights differ from "
+          f"the f32 run's (limit {SELECTION_LIMIT * excluded:.1f}); phase 2 final cost gap "
+          f"{own_gap:.3e}")
+    if not changed <= SELECTION_LIMIT * excluded:
+        raise AssertionError(f"{label}: {changed} factor weights of the f64 run's own selection "
+                             f"differ from the f32 run's, more than {SELECTION_LIMIT} of "
+                             f"{excluded} excluded")
+    if changed == 0 and not own_gap <= 1e-3:
+        raise AssertionError(f"{label}: same selection, phase 2 final cost gap {own_gap:.3e} "
+                             "> 1e-3")
+    return dict(launches=launches, iters=iters, wall=wall, band_solves=spy.calls,
+                band_operands=spy.operands)
 
 
 def fixed_iterations(label, n_iters=20, runs=3):
@@ -656,6 +846,190 @@ def fixed_iterations(label, n_iters=20, runs=3):
         f"{statistics.median(rates):.2f} LM iterations/s (median of "
         + ", ".join(f"{r:.2f}" for r in rates) + ")"
     )
+
+
+# ---- the runner session ----------------------------------------------------
+
+
+def _ate(poses, gt):
+    """Translation RMSE of (frame -> pose) against the ground truth."""
+    return float(np.sqrt(np.mean([np.sum((poses[i][:3] - gt[i, :3]) ** 2)
+                                  for i in range(len(gt))])))
+
+
+def run_session(dtype, plain, profile_frames=None):
+    """One OfflineProblemRunner session at the reference's default config,
+    with ``profile_frames`` (a range of online frames) under torch.profiler.
+    Returns a dict: runner, pg, gt, odometry ATE, seconds per online frame
+    (data adding + optimization, frames 1..N-1), seconds of the final
+    optimization and of the online portion, and (profile, wall s of the
+    profiled frames) or None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    data, gt, _ = ot.synthetic_session(**SESSION)
+    runner = ot.OfflineProblemRunner(
+        ot.config.FullOVSLAMConfig(), dtype=dtype, device=DEVICE, plain=plain
+    )
+    pg = ot.PoseGraph(data.cameras)
+    frame_s, prof, prof_t = {}, None, []
+    add, iterate = runner.add_frame_data, runner.run_optimization_iteration
+
+    def timed_add(data_, pg_, lo, frame):
+        nonlocal prof
+        if profile_frames and frame == profile_frames[0]:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CUDA]).__enter__()
+            prof_t.append(time.perf_counter())
+        t0 = time.perf_counter()
+        add(data_, pg_, lo, frame)
+        frame_s[frame] = frame_s.get(frame, 0.0) + time.perf_counter() - t0
+
+    def timed_iterate(data_, pg_, lo, frame, max_frame, attempt_num=0):
+        t0 = time.perf_counter()
+        out = iterate(data_, pg_, lo, frame, max_frame, attempt_num)
+        key = frame if attempt_num == 0 else "final"
+        frame_s[key] = frame_s.get(key, 0.0) + time.perf_counter() - t0
+        if profile_frames and key == profile_frames[-1]:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+            prof_t.append(time.perf_counter())
+        return out
+
+    runner.add_frame_data, runner.run_optimization_iteration = timed_add, timed_iterate
+    TimerRegistry.instance().reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if not runner.run_optimization(data, pg, visual_frontend=visual_frontend_for(runner, data)):
+        raise AssertionError("session: run_optimization returned False")
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    return dict(
+        runner=runner, pg=pg, gt=gt, odom_ate=_ate(data.initial_poses, gt),
+        online=[frame_s[f] for f in range(1, SESSION["n_frames"])],
+        final_s=frame_s["final"], online_s=total - frame_s["final"],
+        profile=None if prof is None else (prof, prof_t[1] - prof_t[0]),
+    )
+
+
+def session_phase():
+    """The session in f32 through the kernels, between a reset and a read of
+    the launch counts, with K1's and K4's operands captured; its trajectory error
+    against the odometry's (tests/test_runner_e2e.py:168-173); then the same
+    session in f64 through the plain versions, whose error must lie within
+    10% of the f32 run's."""
+    # K4's operand shapes, and its first operand at the largest landmark
+    # count (a window's first LM iteration, before damping has grown: the
+    # last operand of a solve that ends at the minimum trust region is
+    # scaled towards 0).
+    shapes, kept = set(), []
+    inner = ops.syrk_gram
+
+    def spy(c):
+        shapes.add(tuple(c.shape))
+        if not kept or c.shape[0] > kept[0].shape[0]:
+            kept[:] = [c]
+        return inner(c)
+
+    # K1's operands at the largest reprojection table (a copy: the state
+    # moves on).
+    reproj_kept = []
+    reproj_inner = ops.reproj_residuals_and_jac
+
+    def reproj_spy(state, cams, f):
+        if not reproj_kept or f.capacity > reproj_kept[0][2].capacity:
+            reproj_kept[:] = [tuple(type(x)(*(t.clone() for t in x)) for x in (state, cams, f))]
+        return reproj_inner(state, cams, f)
+
+    ops.syrk_gram, ops.reproj_residuals_and_jac = spy, reproj_spy
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with BandSolveSpy() as band:
+            ops.reset_kernel_launches()
+            run = run_session(np.float32, False)
+            launches = ops.kernel_launches()
+    finally:
+        ops.syrk_gram, ops.reproj_residuals_and_jac = inner, reproj_inner
+    peak = torch.cuda.max_memory_allocated()
+    timers = TimerRegistry.instance().summary()
+    runner, pg, online, online_s = run["runner"], run["pg"], run["online"], run["online_s"]
+    n_frames = SESSION["n_frames"]
+    ate = _ate([pg.get_robot_pose(i) for i in range(n_frames)], run["gt"])
+    odom = run["odom_ate"]
+    log = runner.opt_log
+    iters = sum(r.iterations for r in log)
+    solve_s = sum(t["total_s"] for name, t in timers.items() if name.endswith("_solve_opt"))
+    for r in log:
+        if r.termination not in TERMINATION_NAMES.values():
+            raise AssertionError(f"session frame {r.frame_id}: termination {r.termination}")
+    print(
+        f"session ({n_frames} frames, {SESSION['n_features']} features generated, "
+        f"{len(pg.features)} admitted; window "
+        f"{runner.config.sliding_window_params.local_ba_window_size}, global BA every "
+        f"{runner.config.sliding_window_params.global_ba_frequency}): {len(log)} solves, "
+        f"{iters} LM iterations; ATE {ate:.6f} m (odometry {odom:.6f} m); band solves "
+        f"{band.calls}; peak device memory {peak} B"
+    )
+    print(
+        f"session f32 kernels: online portion {online_s:.4f} s, {len(online) / online_s:.3f} "
+        f"frames/s; ms per frame median {statistics.median(online) * 1e3:.2f}, p90 "
+        f"{float(np.percentile(online, 90)) * 1e3:.2f}, max {max(online) * 1e3:.2f}; final "
+        f"optimization {run['final_s']:.4f} s; {iters / solve_s:.2f} LM iterations/s over "
+        f"{solve_s:.4f} s of solves"
+    )
+    for name, t in sorted(timers.items(), key=lambda kv: -kv[1]["total_s"]):
+        print(f"  timer {name}: {t['total_s']:.4f} s in {t['invocations']} calls")
+    for name in SESSION_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched in the session phase")
+    print(f"session launches: {launches}; K4 operand shapes {sorted(shapes)}")
+    if not (ate < 0.5 * odom and ate < 0.05):
+        raise AssertionError(f"session ATE {ate:.6f} m: not below half the odometry's "
+                             f"({odom:.6f} m) and 0.05 m")
+
+    run64 = run_session(np.float64, True)
+    ate64 = _ate([run64["pg"].get_robot_pose(i) for i in range(n_frames)], run64["gt"])
+    print(f"session f64 plain: ATE {ate64:.6f} m, {len(run64['runner'].opt_log)} solves, "
+          f"{sum(r.iterations for r in run64['runner'].opt_log)} LM iterations, online "
+          f"portion {run64['online_s']:.4f} s, final {run64['final_s']:.4f} s")
+    if not abs(ate64 - ate) <= 0.1 * ate:
+        raise AssertionError(f"session ATE f32 {ate:.6f} vs f64 plain {ate64:.6f}: past 10%")
+    return dict(launches=launches, iters=iters, wall=online_s + run["final_s"],
+                syrk_operand=kept[0], reproj_operands=reproj_kept[0],
+                frames_per_s=len(online) / online_s)
+
+
+def profile_session(n_frames=8):
+    """The f32 session once more, its last ``n_frames`` online frames under
+    torch.profiler: device busy time, kernels and busy share per frame. Runs
+    after the kernel timings: a profile of this many device ops can leave
+    later profiler windows short of kernel records."""
+    last = SESSION["n_frames"]
+    frames = range(last - n_frames, last)
+    prof, wall = run_session(np.float32, False, profile_frames=frames)["profile"]
+    profile_summary(f"session frames {frames[0]}-{frames[-1]}", prof, wall, n_frames, "frame")
+
+
+def profile_summary(label, prof, wall_s, n, unit, top=8):
+    """Device busy ms, device kernels and busy share per ``unit`` over ``n``
+    of them from a torch.profiler run of ``wall_s`` seconds; the top device
+    ops. Returns busy ms (0.0 when the profiler saw no device time)."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n_kernels = sum(e.count for e in kernels)
+    if busy_ms <= 0:
+        print(f"profile {label}: the profiler saw no device time; busy share not measured")
+        return 0.0
+    print(
+        f"profile {label}: device busy {busy_ms:.2f} ms over {n} {unit}s, "
+        f"{busy_ms / n:.3f} ms per {unit}; {n_kernels} device kernels ({n_kernels / n:.0f} "
+        f"per {unit}); busy share {busy_ms / (wall_s * 1e3):.4f} of the profiled wall "
+        f"{wall_s:.4f} s"
+    )
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    return busy_ms
 
 
 # ---- timing ---------------------------------------------------------------
@@ -735,33 +1109,15 @@ def launch_floor():
     return device_ms(lambda: torch.add(x, x)), time_ms(lambda: torch.add(x, x))
 
 
-def time_kernels(errs, phases, gram_ops):
-    """Each kernel alone, its wrapper and its plain version, at the main
-    path's shapes in f32: K1 and K2 on the window's tables, K3 on the global
-    problem's operands, K4 on the window's point gram. Device times come from
-    the profiler (K1 and K2: all device work of the wrapper call, which must
-    be one kernel; K3 and K4: their kernels); CUDA-event times of
-    back-to-back calls are also printed: they measure the host's issue rate
-    when it is the slower side. K1's and K2's bounds count the function's
-    inputs (raw poses, points or objects, camera arrays, factor columns) and
-    outputs, each byte once; the bound on the earlier design's inputs, a
-    per-pose (P, 21) [t | R^T | Jr] and a per-camera (C, 12) table built by
-    the wrapper, is printed beside. The grams' bounds count the products of
-    the rows' non-zeros (this run's data); the dense count is printed beside."""
-    state, _, cams, tables, *_ = problem(np.float32)
+def _kernel_cases(state, cams, tables, band_ops, c):
+    """{name: (kernel, wrapper, plain, library, inputs, flops, dense flops)}
+    for K1 and K2 on ``tables``, K3 on ``band_ops`` and K4 on ``c``."""
     cam_r, cam_t = cams.cam_from_robot_r, cams.cam_from_robot_t
     rp, bb = tables.reproj, tables.bbox
-    w_rows, local_pose = gram_ops["band_gram"]
-    (c,) = gram_ops["syrk"]
+    w_rows, local_pose = band_ops
     z, _ = band_gram.launch(w_rows, local_pose)
-    g_k3, k_k3 = z.shape[0], z.shape[1]
     m_k4 = c.shape[1]
-    floor_ms, floor_event_ms = launch_floor()
-    print(f"launch floor (one-element torch.add): {floor_ms:.5f} ms device time, "
-          f"{floor_event_ms:.4f} ms back-to-back CUDA events")
-    # Bytes of those (P, 21) and (C, 12) tables, in place of poses and camera arrays.
-    old_tables = (state.poses.shape[0] * 21 + cam_t.shape[0] * 12) * state.poses.element_size()
-    cases = {
+    return {
         "reproj": (
             lambda: k_reproj.launch(state.poses, state.points, cam_r, cam_t, rp),
             lambda: ops.reproj_residuals_and_jac(state, cams, rp),
@@ -786,7 +1142,7 @@ def time_kernels(errs, phases, gram_ops):
             lambda: band_gram.band_zbuild_gram_plain(w_rows, local_pose),
             lambda: torch.bmm(z.transpose(1, 2), z),
             (w_rows, local_pose),
-            _gram_flops(z), g_k3 * k_k3 * band_gram.WBAND * (band_gram.WBAND + 1),
+            _gram_flops(z), z.shape[0] * z.shape[1] * band_gram.WBAND * (band_gram.WBAND + 1),
         ),
         "syrk": (
             lambda: syrk.launch(c),
@@ -797,68 +1153,132 @@ def time_kernels(errs, phases, gram_ops):
             _gram_flops(c), c.shape[0] * m_k4 * (m_k4 + 1),
         ),
     }
-    launches = {
-        name: sum(ph["launches"][name] for ph in phases.values()) for name in cases
-    }
+
+
+def _measure(name, kernel, wrapper, plain, library, inputs, flops):
+    """Device ms of one call of the kernel (K1/K2: all device work of the
+    wrapper call, which must be one kernel), of the plain version and of the
+    library call; back-to-back CUDA-event ms of each; the bound from the
+    inputs' and outputs' bytes and the flops."""
+    factor_kernel = name in FACTORS_PER_BLOCK
+    per_call = None
+    if factor_kernel:
+        per_call = device_kernels_per_call(wrapper)
+        if per_call != 1:
+            # One more count over more calls before failing: a profiler
+            # window on a busy host can lose kernel records.
+            first, per_call = per_call, device_kernels_per_call(wrapper, calls=20)
+            print(f"{name} wrapper: {first:g} device operations per call counted; "
+                  f"recounted over 20 calls: {per_call:g}")
+        if per_call != 1:
+            raise AssertionError(
+                f"{name} wrapper: {per_call} device operations per call, expected 1")
+    out = kernel()
+    out = out if isinstance(out, tuple) else (out,)
+    bytes_moved = _nbytes(*inputs) + _nbytes(*out)
+    byte_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    flop_ms = flops / F32_FLOPS_PER_S * 1e3
+    m = dict(
+        event_ms=time_ms(kernel), wrapper_event_ms=time_ms(wrapper),
+        plain_event_ms=time_ms(plain, inner=5, reps=5),
+        ms=device_ms(wrapper) if factor_kernel else device_ms(kernel, match=f"{name}_kernel"),
+        plain_ms=device_ms(plain, calls=5),
+        library_ms=None if library is None else device_ms(library, calls=5),
+        source="profiler device time",
+    )
+    if m["ms"] <= 0 or m["plain_ms"] <= 0:
+        m.update(ms=m["event_ms"], plain_ms=m["plain_event_ms"],
+                 source="CUDA events (profiler saw no device time)",
+                 library_ms=None if library is None else time_ms(library, inner=5, reps=5))
+    m.update(bound_ms=max(byte_ms, flop_ms),
+             bound_by="bytes" if byte_ms >= flop_ms else "operations",
+             bytes=bytes_moved, flops=flops, device_kernels_per_call=per_call)
+    return m
+
+
+def time_kernels(errs, phases, gram_ops, session):
+    """Each kernel alone, its wrapper and its plain version in f32, at the
+    main path's shapes: K1 and K2 on the window's tables, K3 on the global
+    problem's operands, K4 on the window's point gram (the JSON line's
+    numbers); and at the larger phases' shapes: K1, K2 and K3 at scale_1024,
+    K4 at the session's last point gram (under ``at``). Device times come
+    from the profiler; CUDA-event times of back-to-back calls are also
+    printed: they measure the host's issue rate when it is the slower side.
+    K1's and K2's bounds count the function's inputs (raw poses, points or
+    objects, camera arrays, factor columns) and outputs, each byte once; the
+    bound on the earlier design's inputs, a per-pose (P, 21) [t | R^T | Jr]
+    and a per-camera (C, 12) table built by the wrapper, is printed beside.
+    The grams' bounds count the products of the rows' non-zeros (this run's
+    data); the dense count is printed beside."""
+    state, _, cams, tables, *_ = problem(np.float32)
+    base = _kernel_cases(state, cams, tables, gram_ops[("band_gram", "global")],
+                         gram_ops[("syrk", "window")][0])
+    big_state, _, big_cams, big_tables, *_ = problem(np.float32, SCALE)
+    larger = _kernel_cases(big_state, big_cams, big_tables,
+                           gram_ops[("band_gram", "scale_1024")], session["syrk_operand"])
+    larger_label = {"reproj": "scale_1024", "bbox": "scale_1024", "band_gram": "scale_1024",
+                    "syrk": "session"}
+    floor_ms, floor_event_ms = launch_floor()
+    print(f"launch floor (one-element torch.add): {floor_ms:.5f} ms device time, "
+          f"{floor_event_ms:.4f} ms back-to-back CUDA events")
+    # Bytes of those (P, 21) and (C, 12) tables, in place of poses and camera arrays.
+    cam_t = cams.cam_from_robot_t
+    old_tables = (state.poses.shape[0] * 21 + cam_t.shape[0] * 12) * state.poses.element_size()
+    all_phases = dict(phases, session=session)
     rows = []
-    for name, (kernel, wrapper, plain, library, inputs, flops, dense_flops) in cases.items():
-        factor_kernel = name in FACTORS_PER_BLOCK
-        per_call = None
-        if factor_kernel:
-            per_call = device_kernels_per_call(wrapper)
-            if per_call != 1:
-                raise AssertionError(
-                    f"{name} wrapper: {per_call} device operations per call, expected 1")
-        out = kernel()
-        out = out if isinstance(out, tuple) else (out,)
-        bytes_moved = _nbytes(*inputs) + _nbytes(*out)
-        byte_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-        flop_ms = flops / F32_FLOPS_PER_S * 1e3
-        event_ms = time_ms(kernel)
-        wrapper_event_ms = time_ms(wrapper)
-        plain_event_ms = time_ms(plain, inner=5, reps=5)
-        ms = device_ms(wrapper) if factor_kernel else device_ms(kernel, match=f"{name}_kernel")
-        plain_ms = device_ms(plain, calls=5)
-        library_ms = None if library is None else device_ms(library, calls=5)
-        source = "profiler device time"
-        if ms <= 0 or plain_ms <= 0:
-            ms, plain_ms, source = event_ms, plain_event_ms, "CUDA events (profiler saw no device time)"
-            library_ms = None if library is None else time_ms(library, inner=5, reps=5)
-        iters = sum(ph["iters"] for ph in phases.values() if ph["launches"][name])
-        by_phase = {label: ph["launches"][name] for label, ph in phases.items()}
+    for name, case in base.items():
+        m = _measure(name, *case[:6])
+        dense_flops = case[6]
+        by_phase = {label: ph["launches"][name] for label, ph in all_phases.items()}
+        per_iter = {label: ph["launches"][name] / ph["iters"]
+                    for label, ph in all_phases.items() if ph["launches"][name]}
+        launches = sum(by_phase.values())
+        iters = sum(ph["iters"] for ph in all_phases.values() if ph["launches"][name])
         extra = ""
         if dense_flops is not None:
             extra = (f"; dense gram {dense_flops} flop, "
                      f"{dense_flops / F32_FLOPS_PER_S * 1e6:.3f} us at 67 TFLOP/s")
-        if factor_kernel:
-            old_bytes = bytes_moved - _nbytes(state.poses, cam_r, cam_t) + old_tables
+        if name in FACTORS_PER_BLOCK:
+            old_bytes = m["bytes"] - _nbytes(state.poses, cams.cam_from_robot_r, cam_t) + old_tables
             extra = (f"; on (P, 21)/(C, 12) pose/camera tables {old_bytes} B, "
-                     f"{max(old_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e6:.4f} us"
-                     f"; {per_call:g} device kernel per wrapper call; launch floor "
-                     f"{floor_ms:.5f} ms")
-        library_txt = "none" if library_ms is None else f"{library_ms:.5f} ms"
+                     f"{max(old_bytes / HBM_BYTES_PER_S, m['flops'] / F32_FLOPS_PER_S) * 1e6:.4f}"
+                     f" us; {m['device_kernels_per_call']:g} device kernel per wrapper call; "
+                     f"launch floor {floor_ms:.5f} ms")
+        library_txt = "none" if m["library_ms"] is None else f"{m['library_ms']:.5f} ms"
         print(
-            f"kernel {name}: {ms:.5f} ms per launch, plain version {plain_ms:.5f} ms per "
-            f"call, library {library_txt} ({source}); back-to-back CUDA events: kernel "
-            f"{event_ms:.4f} ms, wrapper {wrapper_event_ms:.4f} ms, plain "
-            f"{plain_event_ms:.4f} ms; bound {max(byte_ms, flop_ms) * 1e3:.4f} us "
-            f"({bytes_moved} B at 3.35 TB/s, {flops} flop{extra}); launches {by_phase}, "
-            f"{launches[name] / iters:.2f} per LM iteration"
+            f"kernel {name}: {m['ms']:.5f} ms per launch, plain version {m['plain_ms']:.5f} ms "
+            f"per call, library {library_txt} ({m['source']}); back-to-back CUDA events: kernel "
+            f"{m['event_ms']:.4f} ms, wrapper {m['wrapper_event_ms']:.4f} ms, plain "
+            f"{m['plain_event_ms']:.4f} ms; bound {m['bound_ms'] * 1e3:.4f} us "
+            f"({m['bytes']} B at 3.35 TB/s, {m['flops']} flop{extra}); launches {by_phase}, "
+            f"{launches / iters:.2f} per LM iteration"
+        )
+        label = larger_label[name]
+        big = _measure(name, *larger[name][:6])
+        library_txt = "none" if big["library_ms"] is None else f"{big['library_ms']:.5f} ms"
+        print(
+            f"kernel {name} at the {label} shapes: {big['ms']:.5f} ms per launch, plain "
+            f"{big['plain_ms']:.5f} ms, library {library_txt} ({big['source']}); bound "
+            f"{big['bound_ms'] * 1e3:.4f} us ({big['bound_by']}: {big['bytes']} B, "
+            f"{big['flops']} flop; dense gram flops {larger[name][6]}); CUDA events kernel "
+            f"{big['event_ms']:.4f} ms, wrapper {big['wrapper_event_ms']:.4f} ms"
         )
         row = dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
-            replaces=KERNELS[name]["replaces"], launches=launches[name],
-            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-            bound_ms=max(byte_ms, flop_ms),
-            bound_by="bytes" if byte_ms >= flop_ms else "operations",
-            library_ms=library_ms, launches_by_phase=by_phase,
-            launches_per_iteration=launches[name] / iters, event_ms=event_ms,
-            wrapper_event_ms=wrapper_event_ms, plain_event_ms=plain_event_ms,
+            replaces=KERNELS[name]["replaces"], launches=launches,
+            max_abs_err=errs[name], ms=m["ms"], plain_ms=m["plain_ms"],
+            bound_ms=m["bound_ms"], bound_by=m["bound_by"], library_ms=m["library_ms"],
+            launches_by_phase=by_phase, launches_per_iteration=launches / iters,
+            launches_per_iteration_by_phase=per_iter, event_ms=m["event_ms"],
+            wrapper_event_ms=m["wrapper_event_ms"], plain_event_ms=m["plain_event_ms"],
+            at={label: {k: big[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms", "event_ms", "wrapper_event_ms")}},
         )
         if dense_flops is not None:
             row["dense_flop_bound_ms"] = dense_flops / F32_FLOPS_PER_S * 1e3
-        if factor_kernel:
-            row.update(device_kernels_per_call=per_call, launch_floor_ms=floor_ms)
+        if name in FACTORS_PER_BLOCK:
+            row.update(device_kernels_per_call=m["device_kernels_per_call"],
+                       launch_floor_ms=floor_ms)
         rows.append(row)
     return rows
 
@@ -867,30 +1287,86 @@ def profile_phase(label, phase):
     """One more f32 two-phase solve of the phase under torch.profiler: device
     busy time per LM iteration against the wall time per LM iteration of the
     unprofiled main-path run (the two runs' iteration counts differ: f32
-    sums on the card change order from run to run), and the top device ops."""
-    from torch.autograd import DeviceType
+    sums on the card change order from run to run), and the top device ops;
+    at scale_1024 also the band solve's share of the device time."""
     from torch.profiler import ProfilerActivity, profile
 
     problem32 = problem(np.float32, PHASES[label][0])
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, s1, s2, prof_wall = run_two_phase(problem32, plain=False)
     iters = s1.num_iterations + s2.num_iterations
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    n_kernels = sum(e.count for e in kernels)
+    busy_ms = profile_summary(label, prof, prof_wall, iters, "LM iteration")
     if busy_ms <= 0:
-        print(f"profile {label}: the profiler saw no device time; busy share not measured")
         return
     wall_ms_per_iter = phase["wall"] * 1e3 / phase["iters"]
-    print(
-        f"profile {label}: {iters} LM iterations; device busy {busy_ms:.2f} ms, "
-        f"{busy_ms / iters:.3f} ms per LM iteration; {n_kernels} device kernels "
-        f"({n_kernels / iters:.0f} per LM iteration); busy share "
-        f"{busy_ms / iters / wall_ms_per_iter:.4f} of the unprofiled "
-        f"{wall_ms_per_iter:.3f} ms per LM iteration (profiled wall {prof_wall:.4f} s)"
-    )
-    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    print(f"profile {label}: busy share {busy_ms / iters / wall_ms_per_iter:.4f} of the "
+          f"unprofiled {wall_ms_per_iter:.3f} ms per LM iteration")
+    if phase["band_solves"]:
+        band_ms = device_ms(lambda: band_solve.woodbury_band_solve(*phase["band_operands"]),
+                            calls=5)
+        n_ops = device_kernels_per_call(lambda: band_solve.woodbury_band_solve(
+            *phase["band_operands"]), calls=3)
+        d_tiles, _, z, _ = phase["band_operands"]
+        per_iter = phase["band_solves"] / phase["iters"]
+        cr = band_solve._use_cyclic_reduction(d_tiles.shape[0])
+        print(
+            f"profile {label}: band solve ({d_tiles.shape[0]} tiles of {d_tiles.shape[1]}, "
+            f"rank {z.shape[0]}, cyclic reduction {cr}) "
+            f"{band_ms:.3f} ms device time and {n_ops:.0f} device ops per call, "
+            f"{per_iter:.2f} calls per LM iteration: {band_ms * per_iter / (busy_ms / iters):.4f} "
+            f"of the device time per LM iteration"
+        )
+
+
+def check_session_gram(c):
+    """K4 against its plain version at the session's last point-gram operand,
+    in f32 and (the same values) in f64. Returns the f32 max abs error."""
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        cc = c.to(dtype)
+        s4 = syrk.launch(cc)
+        plain = syrk.syrk_gram_plain(cc)
+        torch.cuda.synchronize()
+        if not bool((s4 == s4.T).all()):
+            raise AssertionError("syrk (session): output not exactly symmetric")
+        errs[dtype] = _compare("syrk (session)", (s4,), (plain,), dtype, gram=True)
+    print(f"gram vs plain: syrk at the session's operand (c {tuple(c.shape)}) max abs err "
+          f"f64 {errs[torch.float64]:.3e}, f32 {errs[torch.float32]:.3e} - ok")
+    return errs[torch.float32]
+
+
+def check_session_reproj(state, cams, table):
+    """K1 against its plain version at the session's largest reprojection
+    table (a stereo window: two cameras, the second at a 0.12 m baseline), in
+    f64 and in f32 (the same values): the table as captured, padded with
+    masked garbage rows, its first row (n = 1) and every row masked; two
+    launches equal bit for bit. Returns the f32 max abs error."""
+    n_cam = cams.cam_from_robot_t.shape[0]
+    on_second = int((table.mask & (table.cam_idx == 1)).sum())
+    if n_cam < 2 or on_second == 0 or not bool((cams.cam_from_robot_t[1] != 0).any()):
+        raise AssertionError(f"session reprojection table: {n_cam} cameras, {on_second} live "
+                             "rows on a second camera with a non-zero translation")
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        s, c, t = (_cast(x, dtype) for x in (state, cams, table))
+        padded = _ragged(t, 300, FACTORS_PER_BLOCK["reproj"])
+        cases = {
+            "as captured": t,
+            f"padded to {padded.capacity}": padded,
+            "n=1": _rows(t, 1),
+            "all masked": _rows(padded, padded.capacity, live=False),
+        }
+        errs[dtype] = max(_factor_case("reproj", s, c, tt, dtype, f"session {case}")
+                          for case, tt in cases.items())
+        first, second = (ops.reproj_residuals_and_jac(s, c, padded) for _ in range(2))
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError("reproj kernel: two launches on the session's table differ")
+    print(f"kernel vs plain: reproj at the session's table ({table.capacity} rows, "
+          f"{int(table.mask.sum())} live, {on_second} on camera 1 of {n_cam}, translation "
+          f"{cams.cam_from_robot_t[1].tolist()}; padded, n=1, all masked; two launches bit for "
+          f"bit) max abs err f64 {errs[torch.float64]:.3e}, f32 {errs[torch.float32]:.3e} - ok")
+    return errs[torch.float32]
 
 
 def main():
@@ -905,11 +1381,18 @@ def main():
     gram_tiles(gram_ops)
     for label in PHASES:
         check_step(label)
+    for label, gate in BAND_CHECKS:
+        check_band_vs_dense(label, gate)
     phases = {label: main_path_phase(label) for label in PHASES}
     fixed_iterations("global")
-    rows = time_kernels(errs, phases, gram_ops)
+    fixed_iterations("scale_1024", n_iters=10)
+    session = session_phase()
+    errs["syrk"] = max(errs["syrk"], check_session_gram(session["syrk_operand"]))
+    errs["reproj"] = max(errs["reproj"], check_session_reproj(*session["reproj_operands"]))
+    rows = time_kernels(errs, phases, gram_ops, session)
     for label, ph in phases.items():
         profile_phase(label, ph)
+    profile_session()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(card_line())

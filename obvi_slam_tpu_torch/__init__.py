@@ -13,17 +13,26 @@ Layout (each module keeps the name of its counterpart in ``obvi_slam_tpu``):
                                  plain versions beside their wrappers;
   - ``solver``                   the host Schur plan with the band layouts,
                                  ``compute_step`` on the dense and banded
-                                 slot-gram paths, LM and the two-phase solve;
-  - ``synthetic``, ``convert``   test problems and state exchange with the
-                                 reference package.
+                                 slot-gram paths, the block-tridiagonal +
+                                 Woodbury band solve (``band_solve``), LM, the
+                                 two-phase solve, and the window problem
+                                 builder (``problem``);
+  - ``config``, ``pose_graph``,  the session: the reference's JSON config,
+    ``offline_data``, ``timing``, the host pose graph, the input bundle, the
+    ``frontend``, ``runner``     phase timers, the visual-feature frontend and
+                                 ``OfflineProblemRunner`` (visual-only);
+  - ``synthetic``, ``convert``   test problems and sessions, and state
+                                 exchange with the reference package.
 
 Entry points take ``device`` (default ``"cuda"``); on CPU tensors every
 kernel wrapper runs its plain PyTorch version. This package imports torch and
 numpy only.
 """
 
-from obvi_slam_tpu_torch import factors, geometry, ops, solver, types  # noqa: F401
+from obvi_slam_tpu_torch import config, factors, geometry, ops, solver, types  # noqa: F401
 from obvi_slam_tpu_torch.ops import kernel_launches, reset_kernel_launches  # noqa: F401
+from obvi_slam_tpu_torch.pose_graph import PoseGraph  # noqa: F401
+from obvi_slam_tpu_torch.runner import OfflineProblemRunner  # noqa: F401
 from obvi_slam_tpu_torch.solver import (  # noqa: F401
     LMParams,
     TwoPhaseAux,
@@ -32,4 +41,4 @@ from obvi_slam_tpu_torch.solver import (  # noqa: F401
     solve,
     solve_two_phase,
 )
-from obvi_slam_tpu_torch.synthetic import synthetic_problem  # noqa: F401
+from obvi_slam_tpu_torch.synthetic import synthetic_problem, synthetic_session  # noqa: F401

@@ -198,6 +198,17 @@ def _pad_i(x, cap, fill=0):
     return out
 
 
+def _unique_rows(a, b):
+    """``np.unique(np.stack([a, b], 1), axis=0, return_inverse=True)`` for
+    non-negative integer columns, through one int64 key per row (the same
+    lexicographic order; a 1-D sort instead of a sort of row records)."""
+    a = np.asarray(a, dtype=np.int64)
+    b = np.asarray(b, dtype=np.int64)
+    span = int(b.max()) + 1 if len(b) else 1
+    keys, inv = np.unique(a * span + b, return_inverse=True)
+    return np.stack([keys // span, keys % span], axis=1), inv.reshape(-1)
+
+
 def _build_pairs(
     block_idx, land_idx, mask, pair_cap=None, cross_cap=None,
     land_cap=None, cmax_cap=None, dest_cap=None,
@@ -205,13 +216,7 @@ def _build_pairs(
     """Unique (pose, landmark) pairs, the per-landmark ordered cross pairs
     grouped by destination block, and the slot grid."""
     live = np.nonzero(mask)[0]
-    keys = np.stack([block_idx[live], land_idx[live]], axis=1)
-    if len(live) == 0:
-        uniq = np.zeros((0, 2), dtype=np.int64)
-        inv = np.zeros((0,), dtype=np.int64)
-    else:
-        uniq, inv = np.unique(keys, axis=0, return_inverse=True)
-        inv = inv.reshape(-1)
+    uniq, inv = _unique_rows(block_idx[live], land_idx[live])
     n_pairs = len(uniq)
     factor_pair = np.zeros(len(block_idx), dtype=np.int32)
     factor_pair[live] = inv.astype(np.int32)
@@ -230,12 +235,7 @@ def _build_pairs(
 
     # Group cross rows by destination (pose_a, pose_b) block of S.
     if n_pairs and len(cross_a):
-        dest_keys = np.stack(
-            [uniq[cross_a, 0].astype(np.int64), uniq[cross_b, 0].astype(np.int64)],
-            axis=1,
-        )
-        dest_uniq, dest_inv = np.unique(dest_keys, axis=0, return_inverse=True)
-        dest_inv = dest_inv.reshape(-1)
+        dest_uniq, dest_inv = _unique_rows(uniq[cross_a, 0], uniq[cross_b, 0])
         order = np.argsort(dest_inv, kind="stable")
         cross_a = cross_a[order]
         cross_b = cross_b[order]

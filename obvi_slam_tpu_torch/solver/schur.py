@@ -20,11 +20,15 @@ Two layouts, as in the reference:
     folded onto a component-major S; the object gram is c-major too, and
     the relpose and diagonal blocks are scattered on directly.
 
+From 512 poses (``_use_band_solve``) a banded problem is not assembled into
+S at all: the group grams' 64-pose quadrants and the relpose and diagonal
+blocks go onto block-tridiagonal tiles, the object z becomes the low-rank
+term, and ``band_solve.woodbury_band_solve`` solves S = B - Z^T Z.
+
 Other grams are plain float32/float64 matmuls; on the card TF32 must stay
 off (``torch.backends.cuda.matmul.allow_tf32 = False``), which the caller
 sets. Paths this port does not have yet (the pair-enumeration path, a slot
-grid over budget, the block-tridiagonal band solve from 512 poses) raise
-``NotImplementedError``.
+grid over budget) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from obvi_slam_tpu_torch import factors as fac
 from obvi_slam_tpu_torch import geometry as geo
 from obvi_slam_tpu_torch import ops
 from obvi_slam_tpu_torch.ops import band_gram, syrk
+from obvi_slam_tpu_torch.solver import band_solve
 from obvi_slam_tpu_torch.solver.plan import BAND_TP
 from obvi_slam_tpu_torch.types import BAState
 
@@ -83,8 +88,19 @@ _MAX_DIAG = 1e32
 # Largest one-hot slot grid (elements) the reference builds before it falls
 # back to its pair-scatter path.
 _SLOT_BUDGET = 48 * 1024 * 1024
-# Pose count from which the reference solves a banded S block-tridiagonally.
+# Block-tridiagonal + Woodbury reduced solve: "auto" takes it from
+# _BAND_SOLVE_MIN_POSES poses where the banded layout allows it (see
+# compute_step); "on" / "off" force it (tests set these with monkeypatch).
+_BAND_SOLVE = "auto"
 _BAND_SOLVE_MIN_POSES = 512
+
+
+def _use_band_solve(n_pose) -> bool:
+    if _BAND_SOLVE == "off":
+        return False
+    if _BAND_SOLVE == "on":
+        return True
+    return n_pose is not None and n_pose >= _BAND_SOLVE_MIN_POSES
 
 
 def _outer_rr(a, b):
@@ -148,7 +164,10 @@ def _syrk_gate(n_land, n_cols):
     return n_land >= 1024 and n_land % 256 == 0 and tile_fits
 
 
-def _slot_gram(w_scaled, slot_gather, slot_pose, slot_mask, n_pose, cp_order=False, plain=False):
+def _slot_gram(
+    w_scaled, slot_gather, slot_pose, slot_mask, n_pose, cp_order=False, plain=False,
+    skip_gram=False,
+):
     """Schur subtraction sum_l (W_l G_l)(W_l G_l)^T through the slot grid.
 
     Each live slot (l, c) places its (6, bw) pair block at pose row
@@ -156,7 +175,8 @@ def _slot_gram(w_scaled, slot_gather, slot_pose, slot_mask, n_pose, cp_order=Fal
     entry of z receives one block (dead slots add zeros). Returns S_sub
     (6P, 6P) and z flattened to rows (landmark, block column) by columns
     (pose, component), or (component, pose) with ``cp_order``. The pose-major
-    gram goes through kernel K4 where the reference's syrk gate holds."""
+    gram goes through kernel K4 where the reference's syrk gate holds. With
+    ``skip_gram`` (band solve: z is the Woodbury term) S_sub is None."""
     n_land, n_slot = slot_gather.shape
     bw = w_scaled.shape[-1]
     w_comp = w_scaled.reshape(-1, 6 * bw)[slot_gather.reshape(-1).long()]
@@ -166,19 +186,25 @@ def _slot_gram(w_scaled, slot_gather, slot_pose, slot_mask, n_pose, cp_order=Fal
     z = w_scaled.new_zeros((n_land * n_pose, 6 * bw)).index_add_(0, rows, w_comp)
     perm = (0, 3, 2, 1) if cp_order else (0, 3, 1, 2)
     zf = z.reshape(n_land, n_pose, 6, bw).permute(*perm).reshape(n_land * bw, n_pose * 6)
+    if skip_gram:
+        return None, zf
     if not cp_order and _syrk_gate(n_land, 6 * n_pose):
         gram = syrk.syrk_gram_plain if plain else ops.syrk_gram
         return gram(zf.contiguous()), zf
     return zf.T @ zf, zf
 
 
-def _band_slot_gram(w_scaled, slot_gather, slot_mask, band_local, n_pose, plain=False):
+def _band_slot_gram(
+    w_scaled, slot_gather, slot_mask, band_local, n_pose, plain=False, emit_tiles=False
+):
     """Banded point gram: the slot grid's rows form G groups of Lg landmarks
     whose poses lie in a 128-pose window starting at pose 64 g. Kernel K3
     builds each group's z (G, 3 Lg, 768), rows (landmark, block column) and
-    columns (component, local pose), and its gram; the overlapping group
-    grams (stride 64, width 128) are then summed onto a c-major S_sub
-    (6P, 6P), index c P + p. Returns (S_sub, z)."""
+    columns (component, local pose), and its gram. Returns (S_sub, z): the
+    overlapping group grams (stride 64, width 128) summed onto a c-major
+    S_sub (6P, 6P), index c P + p; or, with ``emit_tiles`` (band solve), the
+    three quadrants (q00, q10, q11), each (G, 6, 64, 6, 64), that group g's
+    gram places on tiles (g, g), (g + 1, g) and (g + 1, g + 1), unfolded."""
     n_group, lg, n_slot = band_local.shape
     n_land = n_group * lg
     bw = w_scaled.shape[-1]
@@ -193,12 +219,44 @@ def _band_slot_gram(w_scaled, slot_gather, slot_mask, band_local, n_pose, plain=
     )
     build = band_gram.band_zbuild_gram_plain if plain else ops.band_zbuild_gram
     z, s_group = build(w_rows.contiguous(), lp_rows.contiguous())
+    if emit_tiles:
+        s6 = s_group.reshape(n_group, 6, 2, BAND_TP, 6, 2, BAND_TP)
+        return (s6[:, :, 0, :, :, 0], s6[:, :, 1, :, :, 0], s6[:, :, 1, :, :, 1]), z
     width = band_gram.WIDTH
     s_pad = s_group.new_zeros((6, BAND_TP * (n_group + 1), 6, BAND_TP * (n_group + 1)))
     for g in range(n_group):
         win = slice(BAND_TP * g, BAND_TP * g + width)
         s_pad[:, win, :, win] += s_group[g].reshape(6, width, 6, width)
     return s_pad[:, :n_pose, :, :n_pose].reshape(6 * n_pose, 6 * n_pose), z
+
+
+def _band_tiles(quads, rows_blk, cols_blk, vals):
+    """Block-tridiagonal tiles of S from the point gram's quadrants and the
+    (P-index) blocks ``vals`` at (rows_blk, cols_blk): d (nb, 384, 384) and
+    e (nb - 1, 384, 384), e[i] = S[tile i + 1, tile i], in c-major-within-
+    tile order. The quadrants' overlap (q11 of group g - 1 and q00 of group
+    g on tile g) is folded and negated (S = blocks - gram); blocks above the
+    diagonal tiles are left out (each cross block's transpose twin is in
+    ``vals``), and they, like the last group's padding tile, land on a spare
+    tile that is sliced off."""
+    q00, q10, q11 = quads
+    nb = q00.shape[0]
+    d = -q00
+    d[1:] -= q11[:-1]
+    e = torch.cat([-q10[:-1], torch.zeros_like(q10[:1])])  # spare tile nb - 1
+    d = torch.cat([d, torch.zeros_like(d[:1])])  # spare tile nb
+    t_r, t_c = rows_blk // BAND_TP, cols_blk // BAND_TP
+    pl_r, pl_c = rows_blk % BAND_TP, cols_blk % BAND_TP
+    ci = torch.arange(6, device=vals.device)
+
+    def index(dest):
+        return (dest[:, None, None], ci[None, :, None], pl_r[:, None, None],
+                ci[None, None, :], pl_c[:, None, None])
+
+    d.index_put_(index(torch.where(t_r == t_c, t_r, nb)), vals, accumulate=True)
+    e.index_put_(index(torch.where(t_r == t_c + 1, t_c, nb - 1)), vals, accumulate=True)
+    m = 6 * BAND_TP
+    return d[:nb].reshape(nb, m, m), e[: nb - 1].reshape(nb - 1, m, m)
 
 
 def _dense_from_pairs(row_blk, col_blk, live, blocks, n_pose, n_col):
@@ -254,17 +312,16 @@ def compute_step(
     # Under banding the reduced system is assembled and solved in
     # (component, pose)-major order, the group grams' own layout.
     cp_order = pt_band
-    if (
+    # Block-tridiagonal + Woodbury solve: banded points, 64-pose tiles, the
+    # relpose band (every live relpose pair within one tile of its partner),
+    # and an object term of low rank.
+    band_solve_on = (
         cp_order
-        and n_pose >= _BAND_SOLVE_MIN_POSES
+        and _use_band_solve(n_pose)
         and n_pose % BAND_TP == 0
         and plan.rel_band_local_pose is not None
         and plan.ob_slot_gather.shape[0] * 7 <= 3 * n_pose
-    ):
-        raise NotImplementedError(
-            f"{n_pose} poses: the block-tridiagonal band solve the reference takes "
-            f"from {_BAND_SOLVE_MIN_POSES} poses is not ported"
-        )
+    )
 
     pose_free = free.poses.to(dtype)
     point_free = free.points.to(dtype)
@@ -406,7 +463,8 @@ def compute_step(
     w_scaled = geo.bmm(w_pt, g_ll[plan.pt_pair_point.long()])  # (Np, 6, 3)
     if pt_band:
         s_sub_pt, z_pt = _band_slot_gram(
-            w_scaled, plan.pt_slot_gather, plan.pt_slot_mask, band_local, n_pose, plain
+            w_scaled, plan.pt_slot_gather, plan.pt_slot_mask, band_local, n_pose, plain,
+            emit_tiles=band_solve_on,
         )
     else:
         s_sub_pt, z_pt = _slot_gram(
@@ -416,7 +474,7 @@ def compute_step(
     w_ob_scaled = geo.bmm(w_ob, g_oo[plan.ob_pair_obj.long()])  # (No, 6, 7)
     s_sub_ob, z_ob = _slot_gram(
         w_ob_scaled, plan.ob_slot_gather, plan.ob_slot_pose, plan.ob_slot_mask, n_pose,
-        cp_order=cp_order, plain=plain,
+        cp_order=cp_order, plain=plain, skip_gram=band_solve_on,
     )
     if cp_order:
         # c-major: the damped diagonal blocks and each relpose factor's cross
@@ -430,10 +488,13 @@ def compute_step(
         rows_blk = torch.cat([p_rng, bidx, aidx])
         cols_blk = torch.cat([p_rng, aidx, bidx])
         vals = torch.cat([diag_blocks, rl_cross, rl_cross.transpose(1, 2)])
-        ci = torch.arange(6, device=h_pp.device)
-        rr = (ci[None, :, None] * n_pose + rows_blk[:, None, None]).expand(-1, 6, 6)
-        cc = (ci[None, None, :] * n_pose + cols_blk[:, None, None]).expand(-1, 6, 6)
-        s = (-(s_sub_pt + s_sub_ob)).index_put_((rr, cc), vals, accumulate=True)
+        if band_solve_on:
+            d_tiles, e_tiles = _band_tiles(s_sub_pt, rows_blk, cols_blk, vals)
+        else:
+            ci = torch.arange(6, device=h_pp.device)
+            rr = (ci[None, :, None] * n_pose + rows_blk[:, None, None]).expand(-1, 6, 6)
+            cc = (ci[None, None, :] * n_pose + cols_blk[:, None, None]).expand(-1, 6, 6)
+            s = (-(s_sub_pt + s_sub_ob)).index_put_((rr, cc), vals, accumulate=True)
     else:
         # Relpose blocks (diagonal + cross) and the damped pose diagonal,
         # minus its relpose part, as one gram V_rel V_rel^T: column block k
@@ -475,19 +536,31 @@ def compute_step(
         b_s = b_p - (z_pt.T @ y_pt.reshape(-1) + z_ob.T @ y_ob.reshape(-1)).reshape(n_pose, 6)
     b_s = b_s * act[:, None]
 
-    # ---- Cholesky + one step of iterative refinement ---------------------
-    # c-major S is a symmetric permutation of the system: only the (P, 6)
-    # rhs and delta are transposed at the boundary.
-    rhs = b_s.T.reshape(-1) if cp_order else b_s.reshape(-1)
-    chol, info = torch.linalg.cholesky_ex(s)
-    delta_raw = torch.cholesky_solve(rhs[:, None], chol)[:, 0]
-    resid = rhs - s.T @ delta_raw
-    delta_ref = delta_raw + torch.cholesky_solve(resid[:, None], chol)[:, 0]
     # A failed factorization zeroes the step: model_cost_change is then 0 and
     # LM rejects it and shrinks the radius (Ceres' linear-solver failure).
-    ok = (info == 0) & torch.isfinite(delta_ref).all()
-    delta_flat = torch.where(ok, delta_ref, torch.zeros_like(delta_ref))
-    delta_p = delta_flat.reshape(6, n_pose).T if cp_order else delta_flat.reshape(n_pose, 6)
+    if band_solve_on:
+        # rhs and Z permute into the tiles' (tile, component, local pose)
+        # order; iterative refinement runs inside the band solve.
+        nb = n_pose // BAND_TP
+        rhs = b_s.T.reshape(6, nb, BAND_TP).transpose(0, 1).reshape(-1)
+        z_band = z_ob.reshape(-1, 6, nb, BAND_TP).transpose(1, 2).reshape(z_ob.shape[0], -1)
+        delta_band, ok = band_solve.woodbury_band_solve(d_tiles, e_tiles, z_band, rhs)
+        ok = ok & torch.isfinite(delta_band).all()
+        delta_band = torch.where(ok, delta_band, torch.zeros_like(delta_band))
+        delta_p = delta_band.reshape(nb, 6, BAND_TP).transpose(0, 1).reshape(6, n_pose).T
+        delta_flat = delta_p.T.reshape(-1)
+    else:
+        # Cholesky + one step of iterative refinement. c-major S is a
+        # symmetric permutation of the system: only the (P, 6) rhs and delta
+        # are transposed at the boundary.
+        rhs = b_s.T.reshape(-1) if cp_order else b_s.reshape(-1)
+        chol, info = torch.linalg.cholesky_ex(s)
+        delta_raw = torch.cholesky_solve(rhs[:, None], chol)[:, 0]
+        resid = rhs - s.T @ delta_raw
+        delta_ref = delta_raw + torch.cholesky_solve(resid[:, None], chol)[:, 0]
+        ok = (info == 0) & torch.isfinite(delta_ref).all()
+        delta_flat = torch.where(ok, delta_ref, torch.zeros_like(delta_ref))
+        delta_p = delta_flat.reshape(6, n_pose).T if cp_order else delta_flat.reshape(n_pose, 6)
 
     # ---- back-substitution: delta_x = H^-1 b_x - G (z^T delta_p) ---------
     def back_substitute(h_inv, b, g_slot, q, slot_mask, slot_land, n_land):

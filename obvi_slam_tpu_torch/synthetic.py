@@ -1,18 +1,27 @@
-"""Synthetic joint object-visual BA window (numpy generation, torch tables).
+"""Synthetic test data (numpy generation, torch tables).
 
-Counterpart of ``obvi_slam_tpu/synthetic.py::synthetic_problem``: the same
-generator draws, in the same order, from ``numpy.random.default_rng(seed)``,
-so equal seeds give equal arrays. Poses advance along +x; points and
-ellipsoids lie ahead of the trajectory; each point is seen from up to
-``obs_per_point`` poses and each object from up to ``obs_per_object``.
+``synthetic_problem`` is the counterpart of
+``obvi_slam_tpu/synthetic.py::synthetic_problem``, a joint object-visual BA
+window: the same generator draws, in the same order, from
+``numpy.random.default_rng(seed)``, so equal seeds give equal arrays. Poses
+advance along +x; points and ellipsoids lie ahead of the trajectory; each
+point is seen from up to ``obs_per_point`` poses and each object from up to
+``obs_per_object``.
+
+``synthetic_session`` is a visual-only stereo session for the runner, drawn
+as the reference's runner tests draw theirs (``make_session`` in
+``tests/test_runner_e2e.py``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from scipy.spatial.transform import Rotation
 
 from obvi_slam_tpu_torch import types as T
+from obvi_slam_tpu_torch.offline_data import OfflineProblemData
+from obvi_slam_tpu_torch.pose_graph import CameraInfo
 from obvi_slam_tpu_torch.solver import plan as plan_mod
 from obvi_slam_tpu_torch.solver.schur import HuberParams, ones_weights
 
@@ -226,3 +235,72 @@ def synthetic_problem(
     )
     weights = ones_weights(tables, dtype=state0.poses.dtype)
     return state0, state_gt, cams, tables, plan, free, weights, HuberParams()
+
+
+def synthetic_session(n_frames=12, n_features=40, noise_px=0.5, odom_noise=0.01, seed=9):
+    """A stereo session: forward motion along +x with a small yaw wobble,
+    random landmarks, exact feature tracks with pixel noise, and a noisy
+    initial trajectory integrated from noisy odometry. Returns (data,
+    gt_poses (n_frames, 6), gt_points (n_features, 3))."""
+    rng = np.random.default_rng(seed)
+    fx = fy = 500.0
+    cx, cy = 320.0, 240.0
+    k = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    baseline = 0.12
+    cameras = {
+        1: CameraInfo(k, np.eye(3), np.zeros(3)),
+        2: CameraInfo(k, np.eye(3), np.array([baseline, 0.0, 0.0])),
+    }
+
+    gt_poses = np.zeros((n_frames, 6))
+    gt_poses[:, 0] = np.arange(n_frames) * 0.25
+    gt_poses[:, 4] = 0.02 * np.sin(np.arange(n_frames) * 0.7)
+    gt_points = np.stack(
+        [
+            rng.uniform(-5, 5, n_features),
+            rng.uniform(-2, 2, n_features),
+            rng.uniform(4, 18, n_features),
+        ],
+        axis=1,
+    )
+
+    rot_w = [Rotation.from_rotvec(gt_poses[i, 3:]).as_matrix() for i in range(n_frames)]
+    feature_tracks = {}
+    for j in range(n_features):
+        track = {}
+        for i in range(n_frames):
+            obs_cams = {}
+            for cam_id, cam in cameras.items():
+                p_robot = rot_w[i].T @ (gt_points[j] - gt_poses[i, :3])
+                p_cam = cam.extrinsics_r.T @ (p_robot - cam.extrinsics_t)
+                if p_cam[2] < 0.5:
+                    continue
+                px = np.array([fx * p_cam[0] / p_cam[2] + cx, fy * p_cam[1] / p_cam[2] + cy])
+                px += rng.normal(size=2) * noise_px
+                if -50 <= px[0] <= 690 and -50 <= px[1] <= 530:
+                    obs_cams[cam_id] = px
+            if obs_cams:
+                track[i] = obs_cams
+        if len(track) >= 2:
+            feature_tracks[j] = track
+
+    init_poses = {0: gt_poses[0].copy()}
+    for i in range(1, n_frames):
+        rel_t = rot_w[i - 1].T @ (gt_poses[i, :3] - gt_poses[i - 1, :3])
+        rel_r = rot_w[i - 1].T @ rot_w[i]
+        rel_t = rel_t + rng.normal(size=3) * odom_noise
+        rel_w = Rotation.from_matrix(rel_r).as_rotvec() + rng.normal(size=3) * odom_noise * 0.5
+        r_prev_init = Rotation.from_rotvec(init_poses[i - 1][3:]).as_matrix()
+        new_t = r_prev_init @ rel_t + init_poses[i - 1][:3]
+        new_r = r_prev_init @ Rotation.from_rotvec(rel_w).as_matrix()
+        init_poses[i] = np.concatenate([new_t, Rotation.from_matrix(new_r).as_rotvec()])
+
+    # Initial 3-D features: perturbed ground truth (stands in for stereo depth).
+    feature_init = {j: gt_points[j] + rng.normal(size=3) * 0.1 for j in feature_tracks}
+    data = OfflineProblemData(
+        cameras=cameras,
+        feature_tracks=feature_tracks,
+        feature_init_positions=feature_init,
+        initial_poses=init_poses,
+    )
+    return data, gt_poses, gt_points

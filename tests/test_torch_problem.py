@@ -5,12 +5,16 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
 from obvi_slam_tpu import types as jt
 from obvi_slam_tpu.solver import schur as jschur
 from obvi_slam_tpu_torch import convert
 from obvi_slam_tpu_torch import compute_step, synthetic_problem
+from obvi_slam_tpu_torch.solver import band_solve
 from obvi_slam_tpu_torch.solver import plan as plan_mod
-from torch_port_helpers import JAX_TYPES, jax_problem, npy, to_port
+from torch_port_helpers import JAX_TYPES, jax_problem, npy, rel_err, to_port
 
 torch.set_num_threads(1)
 
@@ -90,16 +94,31 @@ def test_plan_with_duplicate_observations_and_pinned_caps():
     _assert_trees_equal(from_tables, ref, "plan from tables")
 
 
-def test_banded_plan_is_refused():
-    """A banded plan is built at any size, equal to the reference's; from 512
-    poses, where the reference solves S block-tridiagonally (a solve the
-    port does not have), compute_step refuses it."""
+def test_banded_plan_is_refused(monkeypatch):
+    """A banded plan is built at any size, equal to the reference's. From 512
+    poses, where compute_step once refused it, the auto gate now takes the
+    block-tridiagonal band solve, as the reference does: one
+    woodbury_band_solve, and the step equals the reference's."""
     size = dict(n_poses=512, n_points=256, n_objects=2, obs_per_object=4, seed=0)
-    state, _, cams, tables, plan, free, weights, huber = synthetic_problem(**size, device="cpu")
-    _assert_trees_equal(plan, jax_problem(**size)[4], "plan")
+    ref_problem = jax_problem(**size)
+    state, _, cams, tables, plan, free, weights, huber = ref_problem
+    ours = synthetic_problem(**size, device="cpu")
+    _assert_trees_equal(ours[4], plan, "plan")
     assert plan.pt_band_local_pose is not None and plan.rel_band_local_pose is not None
-    with pytest.raises(NotImplementedError, match="band solve"):
-        compute_step(state, cams, tables, plan, free, weights, 1e4, huber)
+    assert jschur._use_band_solve(512) and jschur._BAND_SOLVE == "auto"
+    calls = []
+    inner = band_solve.woodbury_band_solve
+    monkeypatch.setattr(band_solve, "woodbury_band_solve", lambda *a: calls.append(1) or inner(*a))
+    d, mc, g = compute_step(*(to_port(x) for x in ref_problem[:1] + ref_problem[2:7]), 1e4,
+                            to_port(huber))
+    assert len(calls) == 1
+    d_ref, mc_ref, g_ref = jax.jit(jschur.compute_step, static_argnames=("huber", "dense_schur"))(
+        state, cams, tables, plan, free, weights, jnp.asarray(1e4), huber, dense_schur=True
+    )
+    for name in ("poses", "points", "objects"):
+        assert rel_err(getattr(d, name), getattr(d_ref, name)) <= 1e-9, name
+    assert abs(float(mc) - float(mc_ref)) <= 1e-9 * abs(float(mc_ref))
+    assert abs(float(g) - float(g_ref)) <= 1e-9 * abs(float(g_ref))
 
 
 def test_convert_round_trips_a_jax_problem():

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from obvi_slam_tpu.solver import schur as jschur
 from obvi_slam_tpu_torch import compute_step, synthetic_problem
+from obvi_slam_tpu_torch.solver import band_solve
 from obvi_slam_tpu_torch.solver import schur as schur_mod
 from torch_port_helpers import jax_problem, rel_err, to_port
 
@@ -78,16 +79,22 @@ def test_failed_factorization_zeroes_the_pose_step():
     assert torch.equal(d.poses, torch.zeros_like(d.poses))
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(monkeypatch):
+    """The pair-enumeration path and an over-budget slot grid raise; a banded
+    512-pose problem no longer does: it takes one band solve."""
     state, _, cams, tables, plan, free, weights, huber = synthetic_problem(
         n_poses=16, n_points=64, n_objects=4, device="cpu"
     )
     args = (state, cams, tables, plan, free, weights, 1e4, huber)
     with pytest.raises(NotImplementedError, match="pair-enumeration"):
         compute_step(*args, dense_schur=False)
+    calls = []
+    inner = band_solve.woodbury_band_solve
+    monkeypatch.setattr(band_solve, "woodbury_band_solve", lambda *a: calls.append(1) or inner(*a))
     big = synthetic_problem(n_poses=512, n_points=256, n_objects=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="band solve"):
-        compute_step(*big[:1], *big[2:7], 1e4, big[7])
+    d, mc, _ = compute_step(*big[:1], *big[2:7], 1e4, big[7])
+    assert len(calls) == 1
+    assert bool(torch.isfinite(d.poses).all()) and float(mc) > 0
     budget = schur_mod._SLOT_BUDGET
     try:
         schur_mod._SLOT_BUDGET = 1
