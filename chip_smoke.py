@@ -46,14 +46,40 @@ whose selection may differ in at most 5% of the excluded factors; and
     visual-only stereo session (``synthetic_session``) at the reference's
     default config (window 50, global BA every 30 frames), in f32 through K1
     and K4, checked by its trajectory error against the odometry's and
-    against an f64 run of the plain versions.
+    against an f64 run of the plain versions;
+  - ``objects``: a 64-frame object-visual session
+    (``synthetic_object_session``, stereo, 16 chairs along the path,
+    drifting odometry) wired as the
+    reference's offline object-visual SLAM entry point wires it: the
+    feature-based bounding-box frontend and its pending-object mini-BAs,
+    PGO with the objects on every global-BA frame, the final optimization
+    and the post-session merge loop, in f32 through K1 and K2 (and K4 where
+    a two-phase window BA meets its gate); checked by its trajectory error, one map
+    object per chair within 0.5 m, the PGO records and timers, and an f64
+    run of the plain versions; then the long-term map from its pose graph
+    (the marginal covariances through K1/K2 against the plain versions in
+    f64, every covariance finite and PSD, JSON out and in) and a 16-frame
+    second session seeded from the map, which must observe a map object
+    again. K2 is then held against its plain version at the session's
+    largest two-phase window BA table and a mini-BA table, and K1 at the
+    mini-BA's empty reprojection table.
 
-It prints LM iterations/s, the session's frames/s and ms per frame, the
+The two f64 plain sessions, and the second object session, run in
+processes of their own on the same card (``chip_smoke.py
+--session-process session|objects|second [map.json]``): the plain ones
+from the start, the second one from when the map is saved, all joined at
+the end. The plain object session alone takes about as long as the main
+process's work, so every rate, time and profile of this script is taken
+with the card and the host shared with them.
+
+It prints LM iterations/s, both sessions' frames/s and ms per frame (the
+object session's timer split too), the
 kernels' times, bounds and launch counts (K1 and K2 also with the device
 kernels per wrapper call, which must be 1, and the launch floor: a
 one-element ``torch.add``), each kernel also at the larger phases' shapes,
 a profile of each synthetic phase (with the band solve's share at 1,024
-poses) and of the session's last 8 frames, one JSON line describing the
+poses) and of both sessions' last 8 frames (the object session's run on
+from a copy of its state taken before them), one JSON line describing the
 kernels, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and the last line is not printed. There is no CPU path.
@@ -61,12 +87,14 @@ then non-zero and the last line is not printed. There is no CPU path.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -113,6 +141,29 @@ BAND_SOLVE_PHASE = "scale_1024"
 # gram meets K4's gate, 1024 landmark rows) and the kernels it must launch.
 SESSION = dict(n_frames=64, n_features=1200, seed=9)
 SESSION_KERNELS = ("reproj", "syrk")
+# The object session: 64 keyframes of a stereo rig, 16 chairs along the
+# path, odometry that drifts (1 cm and 5 mrad of noise per step), the
+# reference's default config with a chair prior and PGO on every global-BA
+# frame (frames 1-50, 60 and 63 and the final optimization: the window of 50
+# slides from frame 51, so frames 51-59, 61 and 62 run the two-phase window
+# BA with the objects); then
+# a 16-frame second session of the same scene (other noise) seeded from its
+# long-term map. The last PROFILE_FRAMES online frames are profiled again
+# from a copy of the session's state taken before them.
+OBJECTS = dict(n_frames=64, n_features=1200, n_objects=16, seed=21, baseline=0.12,
+               odom_noise=0.01)
+PROFILE_FRAMES = 8
+OBJECTS_SECOND = dict(OBJECTS, n_frames=16, seed=99)
+OBJECTS_KERNELS = ("reproj", "bbox")
+OBJECT_TIMERS = ("frame_data_adder", "refine_initial_estimate_for_pending_objects",
+                 "obj_only_pgo_full_process", "post_session_map_merge", "ltm_extraction")
+PGO_TIMERS = ("obj_only_pgo_full_process", "obj_only_pgo_local_track_solve",
+              "obj_only_pgo_solve_pgo", "obj_only_pgo_opt_feat_adjust_solve")
+CHAIR_PRIOR = ([0.62, 0.62, 0.975], [0.05, 0.05, 0.05])  # mean, std per axis
+IMG_HW = {1: (480.0, 640.0), 2: (480.0, 640.0)}
+# Marginal covariances, K1/K2 against their plain versions, f64: each 7x7
+# block within this much of its largest entry.
+COV_TOLERANCE = 1e-6
 # The gram kernels' operands held against their plain versions: (kernel,
 # phase whose compute_step hands them over).
 GRAM_CASES = (("band_gram", "global"), ("band_gram", "scale_1024"), ("syrk", "window"))
@@ -857,25 +908,26 @@ def _ate(poses, gt):
                                   for i in range(len(gt))])))
 
 
-def run_session(dtype, plain, profile_frames=None):
-    """One OfflineProblemRunner session at the reference's default config,
-    with ``profile_frames`` (a range of online frames) under torch.profiler.
-    Returns a dict: runner, pg, gt, odometry ATE, seconds per online frame
-    (data adding + optimization, frames 1..N-1), seconds of the final
-    optimization and of the online portion, and (profile, wall s of the
-    profiled frames) or None."""
+def _drive(runner, data, pg, visual_frontend, n_frames, profile_frames=None, start=0,
+           before_frame=None):
+    """runner.run_optimization from online frame ``start`` with per-frame
+    times and ``profile_frames`` (a range of online frames) under
+    torch.profiler; ``before_frame(frame)`` is called before each frame's
+    data adding, untimed. Returns a dict: runner, pg, seconds per online
+    frame (data adding + optimization, frames max(1, start)..N-1), seconds of
+    the final optimization (with the merge loop) and of the online portion,
+    and (profile, wall s of the profiled frames) or None."""
     from torch.profiler import ProfilerActivity, profile
 
-    data, gt, _ = ot.synthetic_session(**SESSION)
-    runner = ot.OfflineProblemRunner(
-        ot.config.FullOVSLAMConfig(), dtype=dtype, device=DEVICE, plain=plain
-    )
-    pg = ot.PoseGraph(data.cameras)
-    frame_s, prof, prof_t = {}, None, []
+    frame_s, prof, prof_t, untimed = {}, None, [], [0.0]
     add, iterate = runner.add_frame_data, runner.run_optimization_iteration
 
     def timed_add(data_, pg_, lo, frame):
         nonlocal prof
+        if before_frame is not None:
+            t0 = time.perf_counter()
+            before_frame(frame)
+            untimed[0] += time.perf_counter() - t0
         if profile_frames and frame == profile_frames[0]:
             torch.cuda.synchronize()
             prof = profile(activities=[ProfilerActivity.CUDA]).__enter__()
@@ -899,24 +951,62 @@ def run_session(dtype, plain, profile_frames=None):
     TimerRegistry.instance().reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if not runner.run_optimization(data, pg, visual_frontend=visual_frontend_for(runner, data)):
-        raise AssertionError("session: run_optimization returned False")
+    if not runner.run_optimization(data, pg, visual_frontend=visual_frontend,
+                                   start_at_frame=start):
+        raise AssertionError("run_optimization returned False")
     torch.cuda.synchronize()
-    total = time.perf_counter() - t0
+    total = time.perf_counter() - t0 - untimed[0]
     return dict(
-        runner=runner, pg=pg, gt=gt, odom_ate=_ate(data.initial_poses, gt),
-        online=[frame_s[f] for f in range(1, SESSION["n_frames"])],
+        runner=runner, pg=pg, online=[frame_s[f] for f in range(max(1, start), n_frames)],
         final_s=frame_s["final"], online_s=total - frame_s["final"],
         profile=None if prof is None else (prof, prof_t[1] - prof_t[0]),
     )
 
 
+def _snapshot_at(frame_at, out, runner, *state):
+    """A ``before_frame`` for ``_drive``: at online frame ``frame_at``, a copy
+    of the runner's caps pools and solve log and of ``state`` into ``out``."""
+    def before_frame(frame):
+        if frame == frame_at:
+            out.append(copy.deepcopy((runner._caps_pools, runner.opt_log, *state)))
+    return before_frame
+
+
+def _resume(run, runner, profile_frames):
+    """``run``'s session run on by ``runner`` from the copy ``_snapshot_at``
+    took at frame ``profile_frames[0]`` (which it uses up), through the
+    final optimization, with ``profile_frames`` under torch.profiler."""
+    pools, log, pg, vf = run["snapshot"][:4]
+    data = run["data"]
+    runner._caps_pools, runner.opt_log = pools, log
+    vf.gba_checker = lambda f: runner._gba_checker(f, data.max_frame_id())
+    return _drive(runner, data, pg, vf, data.max_frame_id() + 1, profile_frames,
+                  start=profile_frames[0])
+
+
+def run_session(dtype, plain, snapshot_at=None):
+    """One visual-only OfflineProblemRunner session at the reference's
+    default config (see ``_drive``), with the ground truth, the odometry's
+    ATE and the copy of its state taken before online frame ``snapshot_at``
+    (or None)."""
+    data, gt, _ = ot.synthetic_session(**SESSION)
+    runner = ot.OfflineProblemRunner(
+        ot.config.FullOVSLAMConfig(), dtype=dtype, device=DEVICE, plain=plain
+    )
+    pg = ot.PoseGraph(data.cameras)
+    vf, snapshot = visual_frontend_for(runner, data), []
+    run = _drive(runner, data, pg, vf, SESSION["n_frames"],
+                 before_frame=_snapshot_at(snapshot_at, snapshot, runner, pg, vf))
+    return dict(run, gt=gt, odom_ate=_ate(data.initial_poses, gt), data=data,
+                snapshot=snapshot[0] if snapshot else None)
+
+
 def session_phase():
     """The session in f32 through the kernels, between a reset and a read of
     the launch counts, with K1's and K4's operands captured; its trajectory error
-    against the odometry's (tests/test_runner_e2e.py:168-173); then the same
-    session in f64 through the plain versions, whose error must lie within
-    10% of the f32 run's."""
+    against the odometry's (tests/test_runner_e2e.py:168-173). The same
+    session in f64 through the plain versions runs in a session process
+    (``check_session_processes``)."""
     # K4's operand shapes, and its first operand at the largest landmark
     # count (a window's first LM iteration, before damping has grown: the
     # last operand of a solve that ends at the minimum trust region is
@@ -945,7 +1035,8 @@ def session_phase():
     try:
         with BandSolveSpy() as band:
             ops.reset_kernel_launches()
-            run = run_session(np.float32, False)
+            run = run_session(np.float32, False,
+                              snapshot_at=SESSION["n_frames"] - PROFILE_FRAMES)
             launches = ops.kernel_launches()
     finally:
         ops.syrk_gram, ops.reproj_residuals_and_jac = inner, reproj_inner
@@ -986,27 +1077,376 @@ def session_phase():
         raise AssertionError(f"session ATE {ate:.6f} m: not below half the odometry's "
                              f"({odom:.6f} m) and 0.05 m")
 
-    run64 = run_session(np.float64, True)
-    ate64 = _ate([run64["pg"].get_robot_pose(i) for i in range(n_frames)], run64["gt"])
-    print(f"session f64 plain: ATE {ate64:.6f} m, {len(run64['runner'].opt_log)} solves, "
-          f"{sum(r.iterations for r in run64['runner'].opt_log)} LM iterations, online "
-          f"portion {run64['online_s']:.4f} s, final {run64['final_s']:.4f} s")
-    if not abs(ate64 - ate) <= 0.1 * ate:
-        raise AssertionError(f"session ATE f32 {ate:.6f} vs f64 plain {ate64:.6f}: past 10%")
     return dict(launches=launches, iters=iters, wall=online_s + run["final_s"],
                 syrk_operand=kept[0], reproj_operands=reproj_kept[0],
-                frames_per_s=len(online) / online_s)
+                frames_per_s=len(online) / online_s, ate=ate, run=run)
 
 
-def profile_session(n_frames=8):
-    """The f32 session once more, its last ``n_frames`` online frames under
+def object_config():
+    """The reference's default config with a chair shape prior and PGO on
+    every global-BA frame (and on the final one), as the paper config runs."""
+    config = ot.config.FullOVSLAMConfig()
+    mean, std = CHAIR_PRIOR
+    config.shape_dimension_priors = [ot.config.ShapeDimensionPrior(
+        "chair", np.array(mean), np.diag(np.array(std) ** 2))]
+    en = config.optimization_factors_enabled_params
+    en.use_pose_graph_on_global_ba = True
+    en.use_pose_graph_on_final_global_ba = True
+    return config
+
+
+def _object_runner(config, pg, fe, dtype, plain):
+    """The runner with the frontend on its bb_frontend hook and the
+    post-session merge on its object_merger hook."""
+    merge = config.post_session_object_merge_params
+    hooks = ot.runner.RunnerHooks(
+        bb_frontend=ot.make_bb_frontend_hook(fe),
+        object_merger=lambda g: ot.apply_merges(g, ot.merge_objects_by_center_proximity(
+            g, merge.max_merge_distance, merge.x_y_only_merge), fe),
+    )
+    return ot.OfflineProblemRunner(config, hooks, dtype=dtype, device=DEVICE, plain=plain)
+
+
+def run_objects(dtype, plain, size=None, ltm=None, stage=None, snapshot_at=None):
+    """One object session (``_drive``), wired as the reference's offline
+    object-visual SLAM entry point wires it: the pose graph seeded from
+    ``ltm``, the feature-based bounding-box frontend on the bb_frontend hook
+    (its mini-BA in ``dtype`` on the card, or the plain versions), the
+    post-session merge on the object_merger hook. ``stage[0]`` reads "mini-BA"
+    inside a pending-object mini-BA, "window" inside a two-phase window BA,
+    else None. At online frame ``snapshot_at`` a copy of the session's state
+    is taken before the frame's data adding (``_resume`` runs on from it).
+    Adds the ground truth, the odometry's ATE, the frontend, the
+    mini-BAs' (calls, LM iterations), the two-phase window BAs and the
+    snapshot (or None)."""
+    from obvi_slam_tpu_torch.frontend import bounding_box_frontend as bbf
+
+    size = size or OBJECTS
+    stage = [None] if stage is None else stage
+    config = object_config()
+    data, gt, gt_objects = ot.synthetic_object_session(**size)
+    pg = ot.PoseGraph(data.cameras, ot.config.shape_prior_map(config))
+    if ltm is not None:
+        ot.seed_pose_graph_from_ltm(pg, ltm)
+    fe = ot.FeatureBasedBoundingBoxFrontEnd(
+        pg, config.feature_based_bb_association_params,
+        config.bounding_box_covariance_generator_params,
+        config.geometric_similarity_scorer_params, img_heights_and_widths=IMG_HW,
+        ltm_front_end_data=None if ltm is None else ltm.front_end_data,
+        dtype=dtype, device=DEVICE, plain=plain,
+    )
+    runner = _object_runner(config, pg, fe, dtype, plain)
+    vf = visual_frontend_for(runner, data)
+    mini, windows, snapshot = [0, 0], [0], []
+    inner, two_phase = bbf.solve, runner._solve_two_phase
+
+    def counted(*a, **k):
+        stage[0] = "mini-BA"
+        try:
+            out = inner(*a, **k)
+        finally:
+            stage[0] = None
+        mini[0] += 1
+        mini[1] += out[1].num_iterations
+        return out
+
+    def window_ba(*a, **k):
+        stage[0] = "window"
+        try:
+            return two_phase(*a, **k)
+        finally:
+            stage[0] = None
+            windows[0] += 1
+
+    bbf.solve, runner._solve_two_phase = counted, window_ba
+    try:
+        run = _drive(runner, data, pg, vf, size["n_frames"],
+                     before_frame=_snapshot_at(snapshot_at, snapshot, runner, pg, vf, fe))
+    finally:
+        bbf.solve = inner
+    return dict(run, gt=gt, gt_objects=gt_objects, odom_ate=_ate(data.initial_poses, gt),
+                frontend=fe, mini_ba=tuple(mini), window_bas=windows[0], config=config,
+                data=data, snapshot=snapshot[0] if snapshot else None)
+
+
+def _object_matches(pg, gt_objects, radius=0.5):
+    """Map objects within ``radius`` of each ground-truth object's centre."""
+    centres = np.array([node.ellipsoid[:3] for node in pg.objects.values()]).reshape(-1, 3)
+    return [int((np.linalg.norm(centres - g[:3], axis=1) < radius).sum()) for g in gt_objects]
+
+
+def _copy_args(state, cams, f):
+    return tuple(type(x)(*(t.clone() for t in x)) for x in (state, cams, f))
+
+
+def check_marginals(pg, config):
+    """compute_marginal_covariances on the session's final pose graph (the
+    extraction problem in f64, with the repair priors the plain run's
+    reduced Hessian calls for): through K1/K2 against the plain versions.
+    Each 7x7 block within COV_TOLERANCE of its largest entry. Returns the
+    worst such relative error and the reduced system's size."""
+    from obvi_slam_tpu_torch import ltm as ltm_mod
+    from obvi_slam_tpu_torch import types as T
+    from obvi_slam_tpu_torch.solver.problem import build_problem
+
+    problem = build_problem(
+        pg, ltm_mod._extraction_scope(pg.max_frame_id(), config),
+        config.ltm_solver_residual_params, dtype=np.float64, device=DEVICE)
+    p = problem
+    args = (p.state, p.cams, p.tables, p.plan, p.free, p.weights, p.huber)
+    _, _, _, red_h = schur_mod.compute_marginal_covariances(
+        *args, return_reduced_hessian=True, plain=True)
+    state_np = {"pose": p.state.poses.cpu().numpy(), "object": p.state.objects.cpu().numpy()}
+    deficient = ltm_mod.find_rank_deficiencies(
+        red_h.cpu().numpy(), state_np, config.ltm_tunable_params.min_col_norm)
+    tables = p.tables
+    if deficient:
+        tables = tables._replace(param_prior=T.make_param_prior_factors(
+            *([d[k] for d in deficient] for k in range(5)), dtype=np.float64, device=DEVICE))
+    args = (p.state, p.cams, tables, p.plan, p.free, p.weights, p.huber)
+    ops.reset_kernel_launches()
+    covs_k, _, ok_k = schur_mod.compute_marginal_covariances(*args)
+    launched = ops.kernel_launches()
+    covs_p, _, ok_p = schur_mod.compute_marginal_covariances(*args, plain=True)
+    torch.cuda.synchronize()
+    if not (bool(ok_k) and bool(ok_p)):
+        raise AssertionError(f"marginal covariances: ok kernels {bool(ok_k)}, plain {bool(ok_p)}")
+    if not (launched["reproj"] and launched["bbox"]):
+        raise AssertionError(f"marginal covariances launched {launched}")
+    n_obj = len(p.obj_rows)
+    a, b = covs_k[:n_obj], covs_p[:n_obj]
+    scale = b.abs().amax(dim=(1, 2))
+    err = float(((a - b).abs().amax(dim=(1, 2)) / scale).max())
+    print(f"marginal covariances (f64, {red_h.shape[0]} x {red_h.shape[0]} reduced system, "
+          f"{n_obj} objects, {len(deficient)} repair priors): K1/K2 against the plain "
+          f"versions, max abs error per block over its largest entry {err:.3e} (limit "
+          f"{COV_TOLERANCE:g}); launches {launched}")
+    if not err <= COV_TOLERANCE:
+        raise AssertionError(f"marginal covariances: kernel vs plain {err:.3e}")
+    return err, red_h.shape[0]
+
+
+def _compare_f32_rounding(name, kernel_out, plain_out, exact_out, live):
+    """f32 kernel against its f32 plain version where the inputs make f32
+    itself inexact: in each factor row of each output, the max abs error
+    within the larger of 1e-4 of the output's largest entry (the f32 rule of
+    ``_compare``) and 4x the plain f32 version's own max abs error against
+    the f64 plain version on the same values in that row. Masked rows
+    exactly 0. Returns, worst over the outputs: the max abs error, the
+    largest 1e-4 floor, the largest plain f32 error against f64 and the
+    largest ratio of a row's error to its limit."""
+    worst = dict(err=0.0, floor=0.0, plain_err=0.0, ratio=0.0)
+    for k, (a, b, x) in enumerate(zip(kernel_out, plain_out, exact_out)):
+        if not bool((a[~live] == 0).all()):
+            raise AssertionError(f"{name} output {k}: masked rows not exactly zero")
+        n = a.shape[0]
+        row_err = (a - b).abs().reshape(n, -1).amax(dim=1).double()
+        row_plain = (b.double() - x).abs().reshape(n, -1).amax(dim=1)
+        floor = 1e-4 * float(b.abs().max())
+        limit = torch.clamp(4.0 * row_plain, min=floor)
+        ratio = torch.where(row_err == 0, torch.zeros_like(row_err), row_err / limit)
+        r = int(ratio.argmax())
+        if not float(ratio[r]) <= 1.0:
+            raise AssertionError(
+                f"{name} f32 output {k} row {r}: max abs err {float(row_err[r]):.3e} > "
+                f"{float(limit[r]):.3e} (1e-4 floor {floor:.3e}, plain f32 against f64 in "
+                f"that row {float(row_plain[r]):.3e})")
+        worst = dict(err=max(worst["err"], float(row_err.max())),
+                     floor=max(worst["floor"], floor),
+                     plain_err=max(worst["plain_err"], float(row_plain.max())),
+                     ratio=max(worst["ratio"], float(ratio[r])))
+    return worst
+
+
+def check_object_tables(window, mini, mini_reproj):
+    """K2 against its plain version at the object session's largest
+    two-phase window BA bbox table and at its largest mini-BA table, in f64
+    (the f64 tolerance) and f32 (the same values; ``_compare_f32_rounding``:
+    near a mini-BA's optimum the residuals are small differences that f32
+    rounds; its floor, plain error and worst row are printed), with the
+    invalid-ellipse value the solve used; the mini-BA table's K1 call (its
+    empty reprojection table: one row, none live) too. Returns the f32 max
+    abs errors (bbox, reproj)."""
+    errs, rounding = {"bbox": {}, "reproj": {}}, {}
+    for dtype in (torch.float64, torch.float32):
+        for label, (state, cams, table, invalid) in (("window", window), ("mini-BA", mini)):
+            s, c, t = (_cast(x, dtype) for x in (state, cams, table))
+            out_k = ops.bbox_residuals_and_jac(s, c, t, invalid)
+            out_p = fac.bbox_residuals_and_jac(s, c, t, invalid)
+            torch.cuda.synchronize()
+            name = f"bbox objects {label}"
+            if dtype == torch.float64:
+                errs["bbox"][(label, dtype)] = _compare(name, out_k, out_p, dtype, t.mask)
+            else:
+                exact = fac.bbox_residuals_and_jac(*(_cast(x, torch.float64) for x in (s, c, t)),
+                                                   invalid)
+                rounding[label] = _compare_f32_rounding(name, out_k, out_p, exact, t.mask)
+                errs["bbox"][(label, dtype)] = rounding[label]["err"]
+        state, cams, rp = mini_reproj
+        if rp.capacity < 1 or bool(rp.mask.any()) or state.points.shape[0] != 1:
+            raise AssertionError(f"mini-BA reprojection table: {rp.capacity} rows, "
+                                 f"{int(rp.mask.sum())} live, {state.points.shape[0]} points")
+        errs["reproj"][dtype] = _factor_case(
+            "reproj", *(_cast(x, dtype) for x in (state, cams, rp)), dtype,
+            "mini-BA (no live rows)")
+    w, m = window[2], mini[2]
+    print(f"kernel vs plain: bbox at the object session's window table ({w.capacity} rows, "
+          f"{int(w.mask.sum())} live, {window[1].fx.shape[0]} cameras, {window[0].poses.shape[0]} "
+          f"poses, {window[0].objects.shape[0]} objects) and at a mini-BA table ({m.capacity} rows, "
+          f"{int(m.mask.sum())} live, invalid value {mini[3]:g}): max abs err "
+          + ", ".join(f"{lbl} {str(dt).split('.')[-1]} {e:.3e}"
+                      for (lbl, dt), e in errs["bbox"].items())
+          + f"; reproj at the mini-BA's empty table f64 {errs['reproj'][torch.float64]:.3e}, "
+          f"f32 {errs['reproj'][torch.float32]:.3e} - ok")
+    for label, r in rounding.items():
+        print(f"kernel vs plain: bbox f32 at the object session's {label} table: max abs err "
+              f"{r['err']:.3e}; 1e-4 floor {r['floor']:.3e}; plain f32 against f64 {r['plain_err']:.3e} "
+              f"(largest in a row); worst row at {r['ratio']:.3f} of its limit")
+    f32 = torch.float32
+    return max(errs["bbox"][("window", f32)], errs["bbox"][("mini-BA", f32)]), errs["reproj"][f32]
+
+
+def objects_phase(tmp):
+    """The object session in f32 through the kernels, between a reset and a
+    read of the launch counts, with K2's operands captured at the largest
+    table of a two-phase window BA and of a mini-BA (and K1's at the
+    mini-BA's empty reprojection table); its gates (trajectory, objects, PGO,
+    two-phase window BAs, launches); the long-term map from the f32 run's
+    pose graph (marginal covariances against the plain versions, extraction,
+    JSON into directory ``tmp``, load). The same session in f64 through the
+    plain versions, and the second session seeded from the map, run in
+    session processes (``check_session_processes``)."""
+    bbox_inner, reproj_inner = ops.bbox_residuals_and_jac, ops.reproj_residuals_and_jac
+    window, mini, mini_reproj, stage = [], [], [], [None]
+
+    def bbox_spy(state, cams, f, invalid_error=1e6):
+        keep = {"window": window, "mini-BA": mini}.get(stage[0])
+        if keep is not None and (not keep or f.capacity > keep[0][2].capacity):
+            keep[:] = [(*_copy_args(state, cams, f), invalid_error)]
+        return bbox_inner(state, cams, f, invalid_error)
+
+    def reproj_spy(state, cams, f):
+        if stage[0] == "mini-BA" and not mini_reproj:
+            mini_reproj.append(_copy_args(state, cams, f))
+        return reproj_inner(state, cams, f)
+
+    n_frames = OBJECTS["n_frames"]
+    ops.bbox_residuals_and_jac, ops.reproj_residuals_and_jac = bbox_spy, reproj_spy
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        ops.reset_kernel_launches()
+        run = run_objects(np.float32, False, stage=stage, snapshot_at=n_frames - PROFILE_FRAMES)
+        launches = ops.kernel_launches()
+    finally:
+        ops.bbox_residuals_and_jac, ops.reproj_residuals_and_jac = bbox_inner, reproj_inner
+    peak = torch.cuda.max_memory_allocated()
+    runner, pg, online, online_s = run["runner"], run["pg"], run["online"], run["online_s"]
+    ate = _ate([pg.get_robot_pose(i) for i in range(n_frames)], run["gt"])
+    odom = run["odom_ate"]
+    log = runner.opt_log
+    iters = sum(r.iterations for r in log)
+    matches = _object_matches(pg, run["gt_objects"])
+    config = run["config"]
+    card = card_line()
+    print(
+        f"objects ({n_frames} frames, {OBJECTS['n_features']} features generated, "
+        f"{len(pg.features)} admitted, {OBJECTS['n_objects']} chairs, stereo at "
+        f"{OBJECTS['baseline']} m; window "
+        f"{config.sliding_window_params.local_ba_window_size}, global BA every "
+        f"{config.sliding_window_params.global_ba_frequency}, PGO on global BA) on {card}: "
+        f"{len(log)} solves ({sum(r.phase == 0 for r in log)} PGO, {run['window_bas']} "
+        f"two-phase window BAs), {iters} LM iterations, mini-BAs {run['mini_ba'][0]} with "
+        f"{run['mini_ba'][1]} LM iterations; {len(pg.objects)} objects, "
+        f"{len(pg.merged_objects)} merged; ATE {ate:.6f} m (odometry {odom:.6f} m); peak "
+        f"device memory {peak} B"
+    )
+    print(
+        f"objects f32 kernels on {card}: online portion {online_s:.4f} s, "
+        f"{len(online) / online_s:.3f} frames/s; ms per frame median "
+        f"{statistics.median(online) * 1e3:.2f}, p90 {float(np.percentile(online, 90)) * 1e3:.2f}, "
+        f"max {max(online) * 1e3:.2f}; final optimization and merge loop "
+        f"{run['final_s']:.4f} s; launches {launches}, bbox {launches['bbox'] / n_frames:.2f} "
+        f"per frame"
+    )
+    for r in log:
+        if r.termination not in TERMINATION_NAMES.values():
+            raise AssertionError(f"objects frame {r.frame_id}: termination {r.termination}")
+    if not (ate < 0.5 * odom and ate < 0.05):
+        raise AssertionError(f"objects ATE {ate:.6f} m: not below half the odometry's "
+                             f"({odom:.6f} m) and 0.05 m")
+    if matches != [1] * len(matches):
+        raise AssertionError(f"objects: map objects within 0.5 m of each chair {matches}")
+    timers = TimerRegistry.instance().summary()
+    if not any(r.phase == 0 for r in log) or not all(t in timers for t in PGO_TIMERS):
+        raise AssertionError(f"objects: PGO did not run (timers {sorted(timers)})")
+    for name in OBJECTS_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched in the objects phase")
+    if not (run["window_bas"] and window and mini and mini_reproj):
+        raise AssertionError(f"objects: {run['window_bas']} two-phase window BAs; window, "
+                             "mini-BA or mini-BA reprojection table not captured")
+
+    cov_err, cov_dim = check_marginals(pg, config)
+    TimerRegistry.instance().reset()
+    ltm = ot.extract_long_term_object_map(
+        pg, config, run["frontend"].get_front_end_obj_map_data(), dtype=np.float64,
+        device=DEVICE)
+    if ltm is None or len(ltm.covariances) != len(pg.objects):
+        raise AssertionError("objects: LTM extraction failed")
+    min_eig = []
+    for obj, cov in ltm.covariances.items():
+        w = np.linalg.eigvalsh(0.5 * (cov + cov.T))
+        min_eig.append(float(w.min() / w.max()))
+        if not (np.all(np.isfinite(cov)) and w.min() >= -1e-12 * w.max()):
+            raise AssertionError(f"objects: LTM covariance of object {obj} not finite PSD {w}")
+    path = str(Path(tmp) / "objects_ltm.json")
+    ltm.save(path)
+    loaded = ot.LongTermObjectMap.load(path)
+    if loaded.ellipsoids.keys() != ltm.ellipsoids.keys() or any(
+            not np.array_equal(loaded.covariances[k], c) for k, c in ltm.covariances.items()):
+        raise AssertionError("objects: LTM changed through JSON")
+    timers.update(TimerRegistry.instance().summary())
+    print(f"objects f32 timers on {card}: " + "; ".join(
+        f"{name} {timers[name]['total_s']:.4f} s in {timers[name]['invocations']} calls"
+        for name in OBJECT_TIMERS if name in timers))
+    for name, t in sorted(timers.items(), key=lambda kv: -kv[1]["total_s"]):
+        print(f"  timer {name}: {t['total_s']:.4f} s in {t['invocations']} calls")
+    print(f"objects LTM: {len(ltm.ellipsoids)} objects, covariances finite and PSD (smallest "
+          f"eigenvalue over largest per object from {min(min_eig):.3e} to {max(min_eig):.3e}), "
+          "saved as JSON and loaded")
+    return dict(launches=launches, iters=iters, wall=online_s + run["final_s"],
+                window=window[0], mini=mini[0], mini_reproj=mini_reproj[0],
+                frames_per_s=len(online) / online_s, ate=ate, run=run,
+                cov_err=cov_err, cov_dim=cov_dim, ltm_path=path,
+                ltm_objects=sorted(loaded.ellipsoids))
+
+
+def profile_objects(run):
+    """The f32 object session's last PROFILE_FRAMES online frames again,
+    run on from the copy of its state taken before them (``_resume``), under
+    torch.profiler (as profile_session)."""
+    last = OBJECTS["n_frames"]
+    frames = range(last - PROFILE_FRAMES, last)
+    runner = _object_runner(run["config"], run["snapshot"][2], run["snapshot"][4],
+                            np.float32, False)
+    prof, wall = _resume(run, runner, frames)["profile"]
+    profile_summary(f"objects frames {frames[0]}-{frames[-1]}", prof, wall, PROFILE_FRAMES,
+                    "frame")
+
+
+def profile_session(run):
+    """The f32 session's last PROFILE_FRAMES online frames again, run on
+    from the copy of its state taken before them (``_resume``), under
     torch.profiler: device busy time, kernels and busy share per frame. Runs
     after the kernel timings: a profile of this many device ops can leave
     later profiler windows short of kernel records."""
     last = SESSION["n_frames"]
-    frames = range(last - n_frames, last)
-    prof, wall = run_session(np.float32, False, profile_frames=frames)["profile"]
-    profile_summary(f"session frames {frames[0]}-{frames[-1]}", prof, wall, n_frames, "frame")
+    frames = range(last - PROFILE_FRAMES, last)
+    runner = ot.OfflineProblemRunner(ot.config.FullOVSLAMConfig(), dtype=np.float32,
+                                     device=DEVICE, plain=False)
+    prof, wall = _resume(run, runner, frames)["profile"]
+    profile_summary(f"session frames {frames[0]}-{frames[-1]}", prof, wall, PROFILE_FRAMES,
+                    "frame")
 
 
 def profile_summary(label, prof, wall_s, n, unit, top=8):
@@ -1057,20 +1497,25 @@ def time_ms(fn, inner=20, reps=9):
 def device_ms(fn, match=None, calls=20):
     """Device time per call from torch.profiler: the self time of the device
     kernels whose name contains ``match`` (all of them when None), summed
-    over ``calls`` calls. 0.0 when the profiler sees no device time."""
+    over ``calls`` calls (in up to three profiler windows, until one sees
+    device time). 0.0 when none does."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and (match is None or match in e.key)
-    )
+    total_us = 0.0
+    for _ in range(3):  # a profiler window on a busy host can lose its kernel records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and (match is None or match in e.key)
+        )
+        if total_us > 0:
+            break
     return total_us / 1e3 / calls
 
 
@@ -1109,6 +1554,20 @@ def launch_floor():
     return device_ms(lambda: torch.add(x, x)), time_ms(lambda: torch.add(x, x))
 
 
+def _bbox_case(state, cams, bb, invalid_error=1e6):
+    """K2's (kernel, wrapper, plain, library, inputs, flops, dense flops)."""
+    cam_r, cam_t = cams.cam_from_robot_r, cams.cam_from_robot_t
+    return (
+        lambda: k_bbox.launch(state.objects, state.poses, cam_r, cam_t, bb, invalid_error),
+        lambda: ops.bbox_residuals_and_jac(state, cams, bb, invalid_error),
+        lambda: fac.bbox_residuals_and_jac(state, cams, bb, invalid_error),
+        None,
+        (state.objects, state.poses, cam_r, cam_t, bb.obj_idx, bb.pose_idx, bb.cam_idx,
+         bb.rect_corners, bb.sqrt_inf, bb.mask),
+        FLOPS_PER_FACTOR["bbox"] * int(bb.mask.sum()), None,
+    )
+
+
 def _kernel_cases(state, cams, tables, band_ops, c):
     """{name: (kernel, wrapper, plain, library, inputs, flops, dense flops)}
     for K1 and K2 on ``tables``, K3 on ``band_ops`` and K4 on ``c``."""
@@ -1127,15 +1586,7 @@ def _kernel_cases(state, cams, tables, band_ops, c):
              rp.cam_idx, rp.rect_obs, rp.multiplier, rp.mask),
             FLOPS_PER_FACTOR["reproj"] * int(rp.mask.sum()), None,
         ),
-        "bbox": (
-            lambda: k_bbox.launch(state.objects, state.poses, cam_r, cam_t, bb),
-            lambda: ops.bbox_residuals_and_jac(state, cams, bb),
-            lambda: fac.bbox_residuals_and_jac(state, cams, bb),
-            None,
-            (state.objects, state.poses, cam_r, cam_t, bb.obj_idx, bb.pose_idx, bb.cam_idx,
-             bb.rect_corners, bb.sqrt_inf, bb.mask),
-            FLOPS_PER_FACTOR["bbox"] * int(bb.mask.sum()), None,
-        ),
+        "bbox": _bbox_case(state, cams, bb),
         "band_gram": (
             lambda: band_gram.launch(w_rows, local_pose),
             lambda: ops.band_zbuild_gram(w_rows, local_pose),
@@ -1196,7 +1647,7 @@ def _measure(name, kernel, wrapper, plain, library, inputs, flops):
     return m
 
 
-def time_kernels(errs, phases, gram_ops, session):
+def time_kernels(errs, phases, gram_ops, session, objects):
     """Each kernel alone, its wrapper and its plain version in f32, at the
     main path's shapes: K1 and K2 on the window's tables, K3 on the global
     problem's operands, K4 on the window's point gram (the JSON line's
@@ -1209,7 +1660,8 @@ def time_kernels(errs, phases, gram_ops, session):
     bound on the earlier design's inputs, a per-pose (P, 21) [t | R^T | Jr]
     and a per-camera (C, 12) table built by the wrapper, is printed beside.
     The grams' bounds count the products of the rows' non-zeros (this run's
-    data); the dense count is printed beside."""
+    data); the dense count is printed beside. K2 is also timed at the object
+    session's largest window table (under ``at``, "objects")."""
     state, _, cams, tables, *_ = problem(np.float32)
     base = _kernel_cases(state, cams, tables, gram_ops[("band_gram", "global")],
                          gram_ops[("syrk", "window")][0])
@@ -1224,7 +1676,9 @@ def time_kernels(errs, phases, gram_ops, session):
     # Bytes of those (P, 21) and (C, 12) tables, in place of poses and camera arrays.
     cam_t = cams.cam_from_robot_t
     old_tables = (state.poses.shape[0] * 21 + cam_t.shape[0] * 12) * state.poses.element_size()
-    all_phases = dict(phases, session=session)
+    all_phases = dict(phases, session=session, objects=objects)
+    o_state, o_cams, o_bbox = (_cast(x, torch.float32) for x in objects["window"][:3])
+    objects_case = _bbox_case(o_state, o_cams, o_bbox, objects["window"][3])
     rows = []
     for name, case in base.items():
         m = _measure(name, *case[:6])
@@ -1263,6 +1717,19 @@ def time_kernels(errs, phases, gram_ops, session):
             f"{big['flops']} flop; dense gram flops {larger[name][6]}); CUDA events kernel "
             f"{big['event_ms']:.4f} ms, wrapper {big['wrapper_event_ms']:.4f} ms"
         )
+        at = {label: {k: big[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "event_ms", "wrapper_event_ms")}}
+        if name == "bbox":
+            ob = _measure(name, *objects_case[:6])
+            print(
+                f"kernel bbox at the objects window table ({o_bbox.capacity} rows, "
+                f"{int(o_bbox.mask.sum())} live): {ob['ms']:.5f} ms per launch, plain "
+                f"{ob['plain_ms']:.5f} ms ({ob['source']}); bound {ob['bound_ms'] * 1e3:.4f} us "
+                f"({ob['bound_by']}: {ob['bytes']} B, {ob['flops']} flop); CUDA events kernel "
+                f"{ob['event_ms']:.4f} ms, wrapper {ob['wrapper_event_ms']:.4f} ms"
+            )
+            at["objects"] = {k: ob[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms", "event_ms", "wrapper_event_ms")}
         row = dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"], launches=launches,
@@ -1271,8 +1738,7 @@ def time_kernels(errs, phases, gram_ops, session):
             launches_by_phase=by_phase, launches_per_iteration=launches / iters,
             launches_per_iteration_by_phase=per_iter, event_ms=m["event_ms"],
             wrapper_event_ms=m["wrapper_event_ms"], plain_event_ms=m["plain_event_ms"],
-            at={label: {k: big[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                            "library_ms", "event_ms", "wrapper_event_ms")}},
+            at=at,
         )
         if dense_flops is not None:
             row["dense_flop_bound_ms"] = dense_flops / F32_FLOPS_PER_S * 1e3
@@ -1369,30 +1835,145 @@ def check_session_reproj(state, cams, table):
     return errs[torch.float32]
 
 
+SESSION_PROCESS_ARG = "--session-process"
+
+
+def session_process(label, *args):
+    """The body of a session process. ``label`` "session" and "objects": the
+    session or the object session in f64 through the plain versions, the
+    reference of that phase's trajectory gate; "second": the 16-frame f32
+    object session through the kernels, seeded from the long-term map saved
+    at ``args[0]``. Prints, as its last line, one JSON object with the
+    session's ATE, objects, map objects observed again, solves, LM
+    iterations, times and kernel launches."""
+    preconditions()
+    torch.set_num_threads(2)
+    ops.reset_kernel_launches()
+    ltm, size = None, OBJECTS
+    if label == "session":
+        run, size = run_session(np.float64, True), SESSION
+    elif label == "objects":
+        run = run_objects(np.float64, True)
+    else:
+        ltm, size = ot.LongTermObjectMap.load(args[0]), OBJECTS_SECOND
+        run = run_objects(np.float32, False, size=size, ltm=ltm)
+    pg, log = run["pg"], run["runner"].opt_log
+    n_frames = size["n_frames"]
+    print(json.dumps(dict(
+        ate=_ate([pg.get_robot_pose(i) for i in range(n_frames)], run["gt"]),
+        objects=len(pg.objects), merged=len(pg.merged_objects),
+        again=[] if ltm is None else sorted(
+            o for o in ltm.ellipsoids if o in pg.objects and pg.obj_obs_by_object.get(o)),
+        solves=len(log), iterations=sum(x.iterations for x in log),
+        online_s=run["online_s"], final_s=run["final_s"],
+        mini_ba=list(run.get("mini_ba", (0, 0))), launches=ops.kernel_launches())))
+
+
+def start_session_process(label, *args):
+    """``session_process(label, *args)`` in a process of its own on the same
+    card, beside the main path: (process, stdout file, stderr file)."""
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), SESSION_PROCESS_ARG, label, *args],
+        stdout=out, stderr=err, cwd=str(REPO))
+    return proc, out, err
+
+
+def join_session_processes(workers):
+    """Waits for the session processes; returns {label: JSON object}."""
+    t0 = time.perf_counter()
+    results = {}
+    for label, (proc, out, err) in workers.items():
+        rc = proc.wait()
+        out.seek(0)
+        err.seek(0)
+        text = out.read()
+        if rc != 0:
+            raise RuntimeError(f"session process {label}: exit code {rc}\n"
+                               f"{text[-2000:]}\n{err.read()[-6000:]}")
+        results[label] = json.loads(text.strip().splitlines()[-1])
+    print(f"session processes: joined after {time.perf_counter() - t0:.1f} s of waiting")
+    return results
+
+
+def stop_session_processes(workers):
+    for proc, _, _ in workers.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def check_session_processes(results, session, objects):
+    """Each f64 plain session's ATE within 10% of its f32 kernel run's, and
+    the plain runs launched no kernel; the second session observed a map
+    object again, through K1 and K2."""
+    for label, f32 in (("session", session), ("objects", objects)):
+        r = results[label]
+        mini = (", mini-BAs %d with %d LM iterations" % tuple(r["mini_ba"])
+                if r["mini_ba"][0] else "")
+        print(f"{label} f64 plain (session process): ATE {r['ate']:.6f} m, "
+              f"{r['objects']} objects, {r['solves']} solves, {r['iterations']} LM iterations"
+              f"{mini}, online portion {r['online_s']:.4f} s, final {r['final_s']:.4f} s")
+        if not abs(r["ate"] - f32["ate"]) <= 0.1 * f32["ate"]:
+            raise AssertionError(f"{label} ATE f32 {f32['ate']:.6f} vs f64 plain "
+                                 f"{r['ate']:.6f}: past 10%")
+        if any(r["launches"].values()):
+            raise AssertionError(f"the plain {label} run launched kernels: {r['launches']}")
+    r = results["second"]
+    print(f"objects second session (session process, {OBJECTS_SECOND['n_frames']} frames, "
+          f"seeded with the {len(objects['ltm_objects'])} map objects): {r['objects']} objects, "
+          f"{r['merged']} merged, map objects observed again {r['again']}; online "
+          f"{r['online_s']:.4f} s, {r['iterations']} LM iterations, launches {r['launches']}")
+    if not r["again"]:
+        raise AssertionError("objects: the second session re-associated no map object")
+    if not all(r["launches"][k] for k in OBJECTS_KERNELS):
+        raise AssertionError(f"objects second session launches {r['launches']}")
+
+
 def main():
     t_start = time.perf_counter()
     preconditions()
-    build()
-    check_kernels(np.float64)
-    errs = check_kernels(np.float32)
-    check_grams(np.float64)
-    gram_errs, gram_ops = check_grams(np.float32)
-    errs.update(gram_errs)
-    gram_tiles(gram_ops)
-    for label in PHASES:
-        check_step(label)
-    for label, gate in BAND_CHECKS:
-        check_band_vs_dense(label, gate)
-    phases = {label: main_path_phase(label) for label in PHASES}
-    fixed_iterations("global")
-    fixed_iterations("scale_1024", n_iters=10)
-    session = session_phase()
-    errs["syrk"] = max(errs["syrk"], check_session_gram(session["syrk_operand"]))
-    errs["reproj"] = max(errs["reproj"], check_session_reproj(*session["reproj_operands"]))
-    rows = time_kernels(errs, phases, gram_ops, session)
-    for label, ph in phases.items():
-        profile_phase(label, ph)
-    profile_session()
+    workers = {label: start_session_process(label) for label in ("session", "objects")}
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        build()
+        check_kernels(np.float64)
+        errs = check_kernels(np.float32)
+        check_grams(np.float64)
+        gram_errs, gram_ops = check_grams(np.float32)
+        errs.update(gram_errs)
+        gram_tiles(gram_ops)
+        for label in PHASES:
+            check_step(label)
+        for label, gate in BAND_CHECKS:
+            check_band_vs_dense(label, gate)
+        print(f"[{time.perf_counter() - t_start:.1f} s] checks done")
+        phases = {label: main_path_phase(label) for label in PHASES}
+        fixed_iterations("global")
+        fixed_iterations("scale_1024", n_iters=10)
+        print(f"[{time.perf_counter() - t_start:.1f} s] synthetic phases done")
+        session = session_phase()
+        errs["syrk"] = max(errs["syrk"], check_session_gram(session["syrk_operand"]))
+        errs["reproj"] = max(errs["reproj"], check_session_reproj(*session["reproj_operands"]))
+        print(f"[{time.perf_counter() - t_start:.1f} s] session phase done")
+        objects = objects_phase(tmp.name)
+        workers["second"] = start_session_process("second", objects["ltm_path"])
+        print(f"[{time.perf_counter() - t_start:.1f} s] objects phase done")
+        bbox_err, reproj_err = check_object_tables(
+            objects["window"], objects["mini"], objects["mini_reproj"])
+        errs["bbox"] = max(errs["bbox"], bbox_err)
+        errs["reproj"] = max(errs["reproj"], reproj_err)
+        rows = time_kernels(errs, phases, gram_ops, session, objects)
+        print(f"[{time.perf_counter() - t_start:.1f} s] kernel timings done")
+        for label, ph in phases.items():
+            profile_phase(label, ph)
+        profile_session(session["run"])
+        profile_objects(objects["run"])
+        print(f"[{time.perf_counter() - t_start:.1f} s] profiles done")
+        check_session_processes(join_session_processes(workers), session, objects)
+    finally:
+        stop_session_processes(workers)
+        tmp.cleanup()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(card_line())
@@ -1407,4 +1988,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) >= 3 and sys.argv[1] == SESSION_PROCESS_ARG:
+        session_process(*sys.argv[2:])
+    else:
+        main()

@@ -19,8 +19,13 @@ Layout (each module keeps the name of its counterpart in ``obvi_slam_tpu``):
                                  builder (``problem``);
   - ``config``, ``pose_graph``,  the session: the reference's JSON config,
     ``offline_data``, ``timing``, the host pose graph, the input bundle, the
-    ``frontend``, ``runner``     phase timers, the visual-feature frontend and
-                                 ``OfflineProblemRunner`` (visual-only);
+    ``frontend``, ``runner``,    phase timers, the visual-feature and
+    ``pgo``                      bounding-box frontends (the pending-object
+                                 mini-BA), ``OfflineProblemRunner`` and its
+                                 PGO pass on global-BA frames;
+  - ``ltm``, ``ltm_pairwise``    the long-term object map: marginal
+                                 covariances, repair, JSON, next-session
+                                 seeding;
   - ``synthetic``, ``convert``   test problems and sessions, and state
                                  exchange with the reference package.
 
@@ -41,4 +46,20 @@ from obvi_slam_tpu_torch.solver import (  # noqa: F401
     solve,
     solve_two_phase,
 )
-from obvi_slam_tpu_torch.synthetic import synthetic_problem, synthetic_session  # noqa: F401
+from obvi_slam_tpu_torch.synthetic import (  # noqa: F401
+    synthetic_object_session,
+    synthetic_problem,
+    synthetic_session,
+)
+from obvi_slam_tpu_torch.frontend import (  # noqa: F401
+    FeatureBasedBoundingBoxFrontEnd,
+    VisualFeatureFrontend,
+    apply_merges,
+    make_bb_frontend_hook,
+    merge_objects_by_center_proximity,
+)
+from obvi_slam_tpu_torch.ltm import (  # noqa: F401
+    LongTermObjectMap,
+    extract_long_term_object_map,
+    seed_pose_graph_from_ltm,
+)

@@ -1,5 +1,5 @@
-"""Offline problem runner: the per-frame optimization loop of a visual-only
-session.
+"""Offline problem runner: the per-frame optimization loop of an
+object-visual session.
 
 Counterpart of ``obvi_slam_tpu/runner.py`` (``OfflineProblemRunner``):
 
@@ -8,6 +8,8 @@ Counterpart of ``obvi_slam_tpu/runner.py`` (``OfflineProblemRunner``):
       add frame data (pose-chain init, odometry factor, visual frontend,
                       bounding-box frontend hook)
       run_optimization_iteration(window, frame):
+          [global-BA frames with PGO enabled: tracking solve + PGO with the
+           objects + feature re-anchoring + feature-only BA (pgo.py)]
           build the window problem (solver.problem, session caps pool)
           two-phase BA: phase-1 LM, outlier ranking + factor re-selection,
           phase-2 LM from the window's input values (one solve_two_phase
@@ -19,10 +21,9 @@ Counterpart of ``obvi_slam_tpu/runner.py`` (``OfflineProblemRunner``):
 The pose graph stays on the host; each window's tables go to ``device``.
 Timer names are the reference's (``timing.timer``). Not ported, each raising
 ``NotImplementedError``: the host-loop two-phase branch
-(``use_fused_solver=False``), PGO on global BA
-(``use_pose_graph_on_global_ba`` / ``..._final_global_ba``), and the
-multi-device ``mesh`` / ``shard_local_ba``. The reference's capacity
-presizing, device diff-sync and optimization logger are not ported either.
+(``use_fused_solver=False``) and the multi-device ``mesh`` /
+``shard_local_ba``. The reference's capacity presizing, device diff-sync and
+optimization logger are not ported either.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from scipy.spatial.transform import Rotation
 from obvi_slam_tpu_torch import config as cfg
 from obvi_slam_tpu_torch.frontend.visual_features import VisualFeatureFrontend, _pose_to_rt
 from obvi_slam_tpu_torch.offline_data import OfflineProblemData
+from obvi_slam_tpu_torch.pgo import run_pgo_plus_ellipsoids, run_tracking_solve
 from obvi_slam_tpu_torch.pose_graph import PoseGraph
 from obvi_slam_tpu_torch.solver import LMParams, TwoPhaseConfig, solve, solve_two_phase
 from obvi_slam_tpu_torch.solver.problem import (
@@ -167,12 +169,13 @@ class OfflineProblemRunner:
     def caps_pool(self, key: str) -> dict:
         return self._caps_pools.setdefault(key, {})
 
-    def _build_problem(self, pg, scope, key: str) -> Problem:
-        """build_problem at the session pool's capacities; grows the pool."""
+    def _build_problem(self, pg, scope, key: str, **build_kw) -> Problem:
+        """build_problem at the session pool's capacities; grows the pool.
+        ``build_kw``: PGO's synthesized relpose chain and Huber delta."""
         pool = self.caps_pool(key)
         problem = build_problem(
             pg, scope, self.config.object_visual_pose_graph_residual_params,
-            dtype=self.dtype, caps=pool, device=self.device,
+            dtype=self.dtype, caps=pool, device=self.device, **build_kw,
         )
         update_caps_pool(pool, problem)
         return problem
@@ -284,6 +287,8 @@ class OfflineProblemRunner:
         iteration_params = self._iteration_params(next_frame_id, max_frame_id)
         global_ba = self._gba_checker(next_frame_id, max_frame_id)
         en = self.config.optimization_factors_enabled_params
+        # PGO on global-BA frames; it may replace the visual-feature BA.
+        run_visual_feature_opt = True
         if global_ba:
             final_attempt = next_frame_id == max_frame_id and attempt_num > 0
             run_pgo = (
@@ -291,7 +296,18 @@ class OfflineProblemRunner:
                 else en.use_pose_graph_on_global_ba
             )
             if run_pgo:
-                raise NotImplementedError("PGO on global BA (the object pipeline) is not ported")
+                run_visual_feature_opt = (
+                    en.use_visual_features_on_final_global_ba if final_attempt
+                    else en.use_visual_features_on_global_ba
+                )
+                with timer("obj_only_pgo_full_process"):
+                    run_tracking_solve(self, data, pg, next_frame_id)
+                    run_pgo_plus_ellipsoids(
+                        self, data, pg, next_frame_id, next_frame_id == max_frame_id,
+                        attempt_num,
+                    )
+        if not run_visual_feature_opt:
+            return True
 
         scope = self._scope(start_opt_with_frame, next_frame_id)
         two_phase = iteration_params.feature_outlier_percentage > 0

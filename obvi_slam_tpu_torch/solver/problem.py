@@ -21,9 +21,9 @@ Selection rules, as in the reference:
 
 Capacities are pinned minimums (``caps``, a session pool grown with
 ``update_caps_pool``), so the port's tables and plans equal the reference
-runner's. Not ported: the PGO inputs (``synthesized_relpose``, the relpose
-Huber override), host-only builds and the row registry of the reference's
-device diff-sync.
+runner's. PGO passes its synthesized relative-pose chain and relpose Huber
+delta (``synthesized_relpose``, ``relpose_huber_override``). Not ported:
+host-only builds and the row registry of the reference's device diff-sync.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from typing import Dict, Optional, Set, Tuple
 
 import numpy as np
 import torch
+from scipy.spatial.transform import Rotation
 
 from obvi_slam_tpu_torch import types as T
 from obvi_slam_tpu_torch.pose_graph import (
@@ -40,6 +41,7 @@ from obvi_slam_tpu_torch.pose_graph import (
     RELATIVE_POSE_FACTOR,
     REPROJECTION_FACTOR,
     PoseGraph,
+    batched_sqrt_inf,
 )
 from obvi_slam_tpu_torch.solver.plan import SchurPlan, build_schur_plan_host
 from obvi_slam_tpu_torch.solver.schur import FactorWeights, HuberParams
@@ -115,6 +117,14 @@ def _camera_arrays(pg: PoseGraph, dtype):
     k = [np.array([c.intrinsics[i, j] for c in cams]).astype(dtype)
          for i, j in ((0, 0), (1, 1), (0, 2), (1, 2))]
     return cam_ids, (r, t, *k)
+
+
+def camera_bundle_from_pose_graph(pg: PoseGraph, dtype=np.float64, device="cuda"):
+    """The pose graph's cameras as a CameraBundle on ``device`` (rows in
+    sorted camera-id order) and the camera id -> row map."""
+    cam_ids, arrays = _camera_arrays(pg, dtype)
+    cams = T.make_camera_bundle(*arrays, dtype=dtype, device=device)
+    return cams, {c: i for i, c in enumerate(cam_ids)}
 
 
 def compute_inclusion_weights(
@@ -267,17 +277,29 @@ def build_problem(
     excluded: Optional[Set[Tuple[int, int]]] = None,
     dtype=np.float64,
     caps: Optional[dict] = None,
+    synthesized_relpose: Optional[list] = None,
+    relpose_huber_override: Optional[float] = None,
     device="cuda",
 ) -> Problem:
     """Gather the window into tables on ``device``.
 
     ``residual_params``: config.ResidualParams for the Huber deltas
     (optional). ``caps``: pinned minimum capacities (table capacities,
-    n_pose / n_point / n_obj and the plan's ``PLAN_CAP_KEYS``)."""
-    return _build_problem_impl(pg, scope, residual_params, excluded, dtype, caps, device)
+    n_pose / n_point / n_obj and the plan's ``PLAN_CAP_KEYS``).
+    ``synthesized_relpose``: (before_frame, after_frame, rel_pose6, cov6x6)
+    tuples that replace the pose graph's relpose factors (PGO's chain from
+    the current estimates), all live. ``relpose_huber_override``: PGO's own
+    relpose Huber delta."""
+    return _build_problem_impl(
+        pg, scope, residual_params, excluded, dtype, caps, synthesized_relpose,
+        relpose_huber_override, device,
+    )
 
 
-def _build_problem_impl(pg, scope, residual_params, excluded, dtype, caps, device) -> Problem:
+def _build_problem_impl(
+    pg, scope, residual_params, excluded, dtype, caps, synthesized_relpose,
+    relpose_huber_override, device,
+) -> Problem:
     cam_ids, cam_arrays = _camera_arrays(pg, dtype)
     cams = T.make_camera_bundle(*cam_arrays, dtype=dtype, device=device)
     fx, fy, cx, cy = cam_arrays[2:]
@@ -289,7 +311,10 @@ def _build_problem_impl(pg, scope, residual_params, excluded, dtype, caps, devic
     lo, hi = scope.min_frame_id, scope.max_frame_id
     reproj_rows = np.array(pg.visual_factor_ids_in_window(lo, hi), dtype=np.int64)
     bbox_rows = np.array(pg.obj_obs_ids_in_window(lo, hi), dtype=np.int64)
-    relpose_rows = np.array(pg.relpose_ids_in_window(lo, hi), dtype=np.int64)
+    if synthesized_relpose is None:
+        relpose_rows = np.array(pg.relpose_ids_in_window(lo, hi), dtype=np.int64)
+    else:
+        relpose_rows = np.array([], dtype=np.int64)
 
     # Landmark rows: every feature/object referenced by a candidate factor.
     vf_cols = pg.visual_factor_columns()
@@ -313,13 +338,15 @@ def _build_problem_impl(pg, scope, residual_params, excluded, dtype, caps, devic
     rp_w, bb_w, sh_w, rl_w, lt_w, _, _ = compute_inclusion_weights(
         pg, scope, reproj_rows, bbox_rows, relpose_rows, shape_rows, ltm_rows, excluded
     )
+    if synthesized_relpose is not None:
+        rl_w = np.ones(len(synthesized_relpose))
 
     # Pinned caps are minimums; the window's actual needs always win.
     caps = dict(caps or {})
     rp_cap = max(caps.get("reproj", 0), _bucket(len(reproj_rows)))
     bb_cap = max(caps.get("bbox", 0), _bucket(len(bbox_rows)))
     sh_cap = max(caps.get("shape", 0), _bucket(len(shape_rows)))
-    rl_cap = max(caps.get("relpose", 0), _bucket(len(relpose_rows)))
+    rl_cap = max(caps.get("relpose", 0), _bucket(len(rl_w)))
     lt_cap = max(caps.get("ltm", 0), _bucket(len(ltm_rows)))
 
     # --- state arrays ------------------------------------------------------
@@ -394,15 +421,30 @@ def _build_problem_impl(pg, scope, residual_params, excluded, dtype, caps, devic
     )
 
     # --- relpose table -----------------------------------------------------
-    rl_cols = pg.relpose_factor_columns()
-    rl_before = _rows_of(frames_arr, rl_cols["before"][relpose_rows])
-    rl_after = _rows_of(frames_arr, rl_cols["after"][relpose_rows])
+    if synthesized_relpose is None:
+        rl_cols = pg.relpose_factor_columns()
+        rl_b_ids = rl_cols["before"][relpose_rows]
+        rl_a_ids = rl_cols["after"][relpose_rows]
+        rl_t = rl_cols["rel_t"][relpose_rows].reshape(-1, 3)
+        rl_r = rl_cols["rel_r"][relpose_rows].reshape(-1, 3, 3)
+        rl_si = rl_cols["sqrt_inf"][relpose_rows].reshape(-1, 6, 6)
+    else:
+        rl_b_ids = np.array([s[0] for s in synthesized_relpose], dtype=np.int64)
+        rl_a_ids = np.array([s[1] for s in synthesized_relpose], dtype=np.int64)
+        rel = np.array([s[2] for s in synthesized_relpose], dtype=np.float64).reshape(-1, 6)
+        covs = np.array([s[3] for s in synthesized_relpose], dtype=np.float64).reshape(
+            -1, 6, 6
+        )
+        rl_t = rel[:, :3]
+        rl_r = (
+            Rotation.from_rotvec(rel[:, 3:6]).as_matrix().reshape(-1, 3, 3)
+            if len(rel) else np.zeros((0, 3, 3))
+        )
+        rl_si = batched_sqrt_inf(covs)
+    rl_before = _rows_of(frames_arr, rl_b_ids)
+    rl_after = _rows_of(frames_arr, rl_a_ids)
     relpose = T.make_relative_pose_factors(
-        rl_before, rl_after,
-        rl_cols["rel_t"][relpose_rows].reshape(-1, 3),
-        rl_cols["rel_r"][relpose_rows].reshape(-1, 3, 3),
-        rl_cols["sqrt_inf"][relpose_rows].reshape(-1, 6, 6),
-        capacity=rl_cap, dtype=dtype, device=device,
+        rl_before, rl_after, rl_t, rl_r, rl_si, capacity=rl_cap, dtype=dtype, device=device,
     )
 
     # --- LTM prior table ---------------------------------------------------
@@ -470,12 +512,16 @@ def _build_problem_impl(pg, scope, residual_params, excluded, dtype, caps, devic
             reproj=residual_params.reprojection_error_huber_loss_param,
             bbox=obj_params.object_observation_huber_loss_param,
             shape=obj_params.shape_dim_prior_factor_huber_loss_param,
-            relpose=residual_params.relative_pose_factor_huber_loss,
+            relpose=(
+                residual_params.relative_pose_factor_huber_loss
+                if relpose_huber_override is None else relpose_huber_override
+            ),
             ltm=residual_params.ltm_pair_huber_loss_param,
             invalid_ellipse_error=obj_params.invalid_ellipsoid_error_val,
         )
     else:
-        huber = HuberParams()
+        huber = HuberParams(relpose=1.0 if relpose_huber_override is None
+                            else relpose_huber_override)
 
     return Problem(
         state=state, cams=cams, tables=tables, plan=plan, free=free, weights=weights,

@@ -606,3 +606,159 @@ def compute_step(
         + inv_radius * quad_damp
     )
     return BAState(delta_p, delta_l, delta_o), model_cost_change, grad_max
+
+
+def compute_marginal_covariances(
+    state: BAState,
+    cams,
+    tables,
+    plan,
+    free,
+    weights: FactorWeights,
+    huber: HuberParams = HuberParams(),
+    return_reduced_hessian: bool = False,
+    ridge: float = 0.0,
+    plain: bool = False,
+):
+    """Per-object marginal covariances at the current state (LTM extraction).
+
+    Counterpart of ``obvi_slam_tpu/solver/schur.py::compute_marginal_
+    covariances``: builds the undamped robustified Gauss-Newton Hessian (its
+    residuals and Jacobians through K1 and K2, as ``compute_step``; their
+    plain versions with ``plain``), eliminates the feature points (they
+    couple to poses only), inverts the dense reduced (poses + objects)
+    system and returns its 7x7 object diagonal blocks. Fixed and unobserved
+    blocks are decoupled (zero cross terms, identity diagonal), so the rest
+    equals the inverse with those parameters removed. ``ridge`` adds that
+    much information to every active parameter.
+
+    Returns (object covariances (K, 7, 7), h_diag {"pose", "point",
+    "object"}: the Hessian's diagonals, ok) and, with
+    ``return_reduced_hessian``, the reduced system. Nothing raises on a
+    failed inverse: ``ok`` is False, and where the factorization failed
+    (``inv_ex``'s info) the covariances are NaN."""
+    dtype = state.poses.dtype
+    device = state.poses.device
+    n_pose, n_point, n_obj = (x.shape[0] for x in state)
+    pose_free = free.poses.to(dtype)
+    point_free = free.points.to(dtype)
+    obj_free = free.objects.to(dtype)
+    rp, bb, sh, rl, lt, pp = tables
+
+    if plain:
+        r_rp, j_rp_pose, j_rp_point = fac.reproj_residuals_and_jac_fast(state, cams, rp)
+        r_bb, j_bb_obj, j_bb_pose = fac.bbox_residuals_and_jac(
+            state, cams, bb, huber.invalid_ellipse_error
+        )
+    else:
+        r_rp, j_rp_pose, j_rp_point = ops.reproj_residuals_and_jac(state, cams, rp)
+        r_bb, j_bb_obj, j_bb_pose = ops.bbox_residuals_and_jac(
+            state, cams, bb, huber.invalid_ellipse_error
+        )
+    w = _block_weight(r_rp, huber.reproj, weights.reproj, rp.mask.to(dtype))
+    j_rp_pose = j_rp_pose * (w * pose_free[rp.pose_idx.long()])[:, None, None]
+    j_rp_point = j_rp_point * (w * point_free[rp.point_idx.long()])[:, None, None]
+    w = _block_weight(r_bb, huber.bbox, weights.bbox, bb.mask.to(dtype))
+    j_bb_obj = j_bb_obj * (w * obj_free[bb.obj_idx.long()])[:, None, None]
+    j_bb_pose = j_bb_pose * (w * pose_free[bb.pose_idx.long()])[:, None, None]
+    r_sh, j_sh = fac.shape_residuals_and_jac(state, sh)
+    w = _block_weight(r_sh, huber.shape, weights.shape, sh.mask.to(dtype))
+    j_sh = j_sh * (w * obj_free[sh.obj_idx.long()])[:, None, None]
+    r_rl, j_rl_b, j_rl_a = fac.relpose_residuals_and_jac(state, rl)
+    w = _block_weight(r_rl, huber.relpose, weights.relpose, rl.mask.to(dtype))
+    j_rl_b = j_rl_b * (w * pose_free[rl.before_idx.long()])[:, None, None]
+    j_rl_a = j_rl_a * (w * pose_free[rl.after_idx.long()])[:, None, None]
+    r_lt, j_lt = fac.ltm_residuals_and_jac(state, lt)
+    w = _block_weight(r_lt, huber.ltm, weights.ltm, lt.mask.to(dtype))
+    j_lt = j_lt * (w * obj_free[lt.obj_idx.long()])[:, None, None]
+
+    # ---- block Hessians (undamped) ----------------------------------------
+    def gram_sum(j, idx, n):
+        return _segment_sum(_outer_rr(j, j), idx, n)
+
+    h_ll = gram_sum(j_rp_point, rp.point_idx, n_point)
+    h_oo = (
+        gram_sum(j_bb_obj, bb.obj_idx, n_obj) + gram_sum(j_sh, sh.obj_idx, n_obj)
+        + gram_sum(j_lt, lt.obj_idx, n_obj)
+    )
+    h_pp = (
+        gram_sum(j_rp_pose, rp.pose_idx, n_pose) + gram_sum(j_bb_pose, bb.pose_idx, n_pose)
+        + gram_sum(j_rl_b, rl.before_idx, n_pose) + gram_sum(j_rl_a, rl.after_idx, n_pose)
+    )
+
+    # Scalar parameter priors (the rank-deficiency repair) onto the diagonals.
+    pp_w2 = pp.inv_std * pp.inv_std * pp.mask.to(dtype)
+    bidx, pidx = pp.block_idx.long(), pp.param_idx.long()
+
+    def prior_diag(kind, free_mask, n_block, dim):
+        blk = bidx.clamp(0, n_block - 1)
+        sel = (pp.block_kind == kind).to(dtype) * free_mask[blk]
+        flat = blk * dim + pidx.clamp(0, dim - 1)
+        vec = pp_w2.new_zeros(n_block * dim).index_add_(0, flat, pp_w2 * sel)
+        return torch.diag_embed(vec.reshape(n_block, dim))
+
+    h_pp = h_pp + prior_diag(0, pose_free, n_pose, 6)
+    h_ll = h_ll + prior_diag(1, point_free, n_point, 3)
+    h_oo = h_oo + prior_diag(2, obj_free, n_obj, 7)
+    h_diag = {"pose": _diag(h_pp), "point": _diag(h_ll), "object": _diag(h_oo)}
+
+    # ---- eliminate points --------------------------------------------------
+    eye3 = torch.eye(3, dtype=dtype, device=device)
+    ll_active = (_diag(h_ll).abs().sum(-1) > 1e-12) & free.points
+    h_ll_inv = torch.linalg.inv_ex(torch.where(ll_active[:, None, None], h_ll, eye3))[0]
+    h_ll_inv = h_ll_inv * ll_active[:, None, None].to(dtype)
+
+    w_pt = _segment_sum(
+        _outer_rr(j_rp_pose, j_rp_point), plan.rp_factor_pair, plan.pt_pair_pose.shape[0]
+    ) * plan.pt_pair_mask[:, None, None].to(dtype)
+    s_pp = h_pp.new_zeros((n_pose, n_pose, 6, 6))
+    p_rng = torch.arange(n_pose, device=device)
+    s_pp[p_rng, p_rng] += h_pp
+    rl_cross = _outer_rr(j_rl_b, j_rl_a)
+    bi, ai = rl.before_idx.long(), rl.after_idx.long()
+    s_pp.index_put_((bi, ai), rl_cross, accumulate=True)
+    s_pp.index_put_((ai, bi), rl_cross.transpose(1, 2), accumulate=True)
+    cross_a, cross_b = plan.pt_cross_a.long(), plan.pt_cross_b.long()
+    wha = geo.bmm(w_pt[cross_a], h_ll_inv[plan.pt_pair_point.long()[cross_a]])
+    cross = -geo.bmm(wha, w_pt[cross_b].transpose(1, 2))
+    cross = cross * plan.pt_cross_mask[:, None, None].to(dtype)
+    dest_pt = _segment_sum(cross, plan.pt_cross_dest, plan.pt_dest_a.shape[0])
+    dest_pt = dest_pt * plan.pt_dest_mask[:, None, None].to(dtype)
+    s_pp.index_put_((plan.pt_dest_a.long(), plan.pt_dest_b.long()), dest_pt, accumulate=True)
+
+    # ---- pose-object coupling ----------------------------------------------
+    w_ob = _segment_sum(
+        _outer_rr(j_bb_pose, j_bb_obj), plan.bb_factor_pair, plan.ob_pair_pose.shape[0]
+    ) * plan.ob_pair_mask[:, None, None].to(dtype)
+    h_po = h_pp.new_zeros((n_pose, n_obj, 6, 7))
+    h_po.index_put_((plan.ob_pair_pose.long(), plan.ob_pair_obj.long()), w_ob, accumulate=True)
+
+    # ---- the dense reduced system ------------------------------------------
+    np6, no7 = n_pose * 6, n_obj * 7
+    a = h_pp.new_zeros((np6 + no7, np6 + no7))
+    a[:np6, :np6] = s_pp.permute(0, 2, 1, 3).reshape(np6, np6)
+    h_po_dense = h_po.permute(0, 2, 1, 3).reshape(np6, no7)
+    a[:np6, np6:] = h_po_dense
+    a[np6:, :np6] = h_po_dense.T
+    o_rng = torch.arange(n_obj, device=device)
+    oo_dense = h_oo.new_zeros((n_obj, n_obj, 7, 7))
+    oo_dense[o_rng, o_rng] = h_oo
+    a[np6:, np6:] = oo_dense.permute(0, 2, 1, 3).reshape(no7, no7)
+    # Decouple fixed / inactive rows (identity diagonal); ``ridge`` adds
+    # information to every active parameter.
+    pose_active = (_diag(h_pp).abs().sum(-1) > 1e-12) & free.poses
+    obj_active = (_diag(h_oo).abs().sum(-1) > 1e-12) & free.objects
+    act = torch.cat(
+        [pose_active.to(dtype).repeat_interleave(6), obj_active.to(dtype).repeat_interleave(7)]
+    )
+    a = a * act[:, None] * act[None, :]
+    a = a + torch.diag(1.0 - act)
+    a = a + torch.diag(act * ridge)
+
+    sigma, info = torch.linalg.inv_ex(a)
+    sigma = torch.where(info == 0, sigma, torch.full_like(sigma, float("nan")))
+    ok = torch.isfinite(sigma).all()
+    obj_covs = sigma[np6:, np6:].reshape(n_obj, 7, n_obj, 7)[o_rng, :, o_rng, :]
+    if return_reduced_hessian:
+        return obj_covs, h_diag, ok, a
+    return obj_covs, h_diag, ok

@@ -10,7 +10,9 @@ point is seen from up to ``obs_per_point`` poses and each object from up to
 
 ``synthetic_session`` is a visual-only stereo session for the runner, drawn
 as the reference's runner tests draw theirs (``make_session`` in
-``tests/test_runner_e2e.py``).
+``tests/test_runner_e2e.py``). ``synthetic_object_session`` adds chair-class
+ellipsoids with detections, drawn as the reference's object tests draw
+theirs (``make_object_session`` in ``tests/test_bb_frontend.py``).
 """
 
 from __future__ import annotations
@@ -19,8 +21,9 @@ import numpy as np
 import torch
 from scipy.spatial.transform import Rotation
 
+from obvi_slam_tpu_torch import geometry as geo
 from obvi_slam_tpu_torch import types as T
-from obvi_slam_tpu_torch.offline_data import OfflineProblemData
+from obvi_slam_tpu_torch.offline_data import OfflineProblemData, RawBoundingBox
 from obvi_slam_tpu_torch.pose_graph import CameraInfo
 from obvi_slam_tpu_torch.solver import plan as plan_mod
 from obvi_slam_tpu_torch.solver.schur import HuberParams, ones_weights
@@ -304,3 +307,155 @@ def synthetic_session(n_frames=12, n_features=40, noise_px=0.5, odom_noise=0.01,
         initial_poses=init_poses,
     )
     return data, gt_poses, gt_points
+
+
+# The two chairs of the reference's object session (class prior mean
+# [0.62, 0.62, 0.975]).
+_CHAIR_DIMS = [0.62, 0.62, 0.975]
+_TWO_CHAIRS = np.array([[1.0, 0.5, 7.0, 0.0, *_CHAIR_DIMS], [-1.8, 0.4, 10.0, 0.0, *_CHAIR_DIMS]])
+
+
+def _chair_grid(n_objects, dims):
+    """Chairs in two rows along the trajectory, 2.2 m apart in x and 2.5 m
+    in y, so no two lie within the post-session merge distance (2 m, x-y)."""
+    k = np.arange(n_objects)
+    col, row = k // 2, k % 2
+    return np.stack(
+        [
+            -1.4 + 2.2 * col + 1.1 * row,
+            np.where(row == 0, -1.0, 1.5),
+            np.where(row == 0, 7.0, 10.0),
+            np.zeros(n_objects),
+            *(np.full(n_objects, d) for d in dims),
+        ],
+        axis=1,
+    )
+
+
+def synthetic_object_session(
+    n_frames=14, seed=21, n_objects=2, n_features=40, baseline=None, dims=None,
+    odom_noise=None,
+):
+    """An object-visual session: forward motion along +x, chairs with ten
+    surface features each (the feature-overlap association signal), the rest
+    of ``n_features`` in the background, noisy feature tracks, noisy
+    projected-ellipsoid detections (confidence 0.9) and a noisy initial
+    trajectory. At the defaults (one camera, the reference's two chairs) it
+    draws what ``make_object_session`` draws, in the same order; other
+    ``n_objects`` place chairs with ``_chair_grid``, ``dims`` replaces the
+    chairs' dimensions, ``baseline`` adds a second camera that far along
+    x, with its own tracks and detections, and ``odom_noise`` integrates the
+    initial trajectory from noisy odometry (as ``synthetic_session``: it
+    drifts) instead of jittering each pose about the ground truth.
+    Returns (data, gt_poses (n_frames, 6), gt_objects (n_objects, 7))."""
+    rng = np.random.default_rng(seed)
+    k = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]])
+    cameras = {1: CameraInfo(k, np.eye(3), np.zeros(3))}
+    if baseline is not None:
+        cameras[2] = CameraInfo(k, np.eye(3), np.array([baseline, 0.0, 0.0]))
+
+    gt_poses = np.zeros((n_frames, 6))
+    gt_poses[:, 0] = np.arange(n_frames) * 0.2
+    dims = _CHAIR_DIMS if dims is None else list(dims)
+    if n_objects == 2:
+        gt_objects = _TWO_CHAIRS.copy()
+        gt_objects[:, 4:7] = dims
+    else:
+        gt_objects = _chair_grid(n_objects, dims)
+
+    feat_positions = {}
+    fid = 0
+    for obj in gt_objects:
+        for _ in range(10):
+            feat_positions[fid] = obj[:3] + rng.uniform(-0.5, 0.5, 3) * obj[4:7]
+            fid += 1
+    x_hi = max(5.0, gt_poses[-1, 0] + 2.0)
+    for _ in range(n_features - fid):
+        feat_positions[fid] = np.array(
+            [rng.uniform(-5, x_hi), rng.uniform(-2, 2), rng.uniform(4, 15)]
+        )
+        fid += 1
+
+    rot_w = [Rotation.from_rotvec(p[3:]).as_matrix() for p in gt_poses]
+
+    def project(i, point, cam):
+        p_robot = rot_w[i].T @ (point - gt_poses[i, :3])
+        p_cam = cam.extrinsics_r.T @ (p_robot - cam.extrinsics_t)
+        if p_cam[2] <= 0.3:
+            return None
+        return np.array([500.0 * p_cam[0] / p_cam[2] + 320.0,
+                         500.0 * p_cam[1] / p_cam[2] + 240.0])
+
+    feature_tracks = {}
+    for j, pos in feat_positions.items():
+        track = {}
+        for i in range(n_frames):
+            obs = {}
+            for cam_id, cam in cameras.items():
+                px = project(i, pos, cam)
+                if px is not None and 0 <= px[0] <= 640 and 0 <= px[1] <= 480:
+                    obs[cam_id] = px + rng.normal(size=2) * 0.3
+            if obs:
+                track[i] = obs
+        if len(track) >= 2:
+            feature_tracks[j] = track
+
+    # Detections: projected ground-truth ellipsoid corners plus noise.
+    corners, valid = geo.ellipsoid_corners_rectified(
+        torch.from_numpy(gt_objects)[None],
+        torch.from_numpy(gt_poses)[:, None],
+        torch.from_numpy(np.stack([c.extrinsics_r.T for c in cameras.values()]))[:, None, None],
+        torch.from_numpy(
+            np.stack([-c.extrinsics_r.T @ c.extrinsics_t for c in cameras.values()])
+        )[:, None, None],
+    )  # (cam, frame, object)
+    corners, valid = corners.numpy(), valid.numpy()
+    bounding_boxes = {}
+    for i in range(n_frames):
+        by_cam = {}
+        for ci, cam_id in enumerate(cameras):
+            bbs = []
+            for o in range(len(gt_objects)):
+                if not valid[ci, i, o]:
+                    continue
+                c = corners[ci, i, o]
+                px = np.array(
+                    [500.0 * c[0] + 320.0, 500.0 * c[1] + 320.0,
+                     500.0 * c[2] + 240.0, 500.0 * c[3] + 240.0]
+                ) + rng.normal(size=4) * 1.0
+                if px[1] < 10 or px[0] > 630 or px[3] < 10 or px[2] > 470:
+                    continue
+                bbs.append(RawBoundingBox(px, "chair", 0.9))
+            if bbs:
+                by_cam[cam_id] = bbs
+        if by_cam:
+            bounding_boxes[i] = by_cam
+
+    if odom_noise is None:
+        init_poses = {
+            i: gt_poses[i]
+            + np.concatenate([rng.normal(size=3) * 0.01, rng.normal(size=3) * 0.004])
+            for i in range(n_frames)
+        }
+        init_poses[0] = gt_poses[0].copy()
+    else:
+        init_poses = {0: gt_poses[0].copy()}
+        for i in range(1, n_frames):
+            rel_t = rot_w[i - 1].T @ (gt_poses[i, :3] - gt_poses[i - 1, :3])
+            rel_t = rel_t + rng.normal(size=3) * odom_noise
+            rel_w = (Rotation.from_matrix(rot_w[i - 1].T @ rot_w[i]).as_rotvec()
+                     + rng.normal(size=3) * odom_noise * 0.5)
+            r_prev = Rotation.from_rotvec(init_poses[i - 1][3:]).as_matrix()
+            init_poses[i] = np.concatenate([
+                r_prev @ rel_t + init_poses[i - 1][:3],
+                Rotation.from_matrix(r_prev @ Rotation.from_rotvec(rel_w).as_matrix()).as_rotvec(),
+            ])
+    feature_init = {j: feat_positions[j] + rng.normal(size=3) * 0.05 for j in feature_tracks}
+    data = OfflineProblemData(
+        cameras=cameras,
+        feature_tracks=feature_tracks,
+        feature_init_positions=feature_init,
+        initial_poses=init_poses,
+        bounding_boxes=bounding_boxes,
+    )
+    return data, gt_poses, gt_objects
