@@ -49,31 +49,39 @@ whose selection may differ in at most 5% of the excluded factors; and
     against an f64 run of the plain versions;
   - ``objects``: a 64-frame object-visual session
     (``synthetic_object_session``, stereo, 16 chairs along the path,
-    drifting odometry) wired as the
-    reference's offline object-visual SLAM entry point wires it: the
-    feature-based bounding-box frontend and its pending-object mini-BAs,
-    PGO with the objects on every global-BA frame, the final optimization
-    and the post-session merge loop, in f32 through K1 and K2 (and K4 where
-    a two-phase window BA meets its gate); checked by its trajectory error, one map
-    object per chair within 0.5 m, the PGO records and timers, and an f64
-    run of the plain versions; then the long-term map from its pose graph
-    (the marginal covariances through K1/K2 against the plain versions in
-    f64, every covariance finite and PSD, JSON out and in) and a 16-frame
-    second session seeded from the map, which must observe a map object
-    again. K2 is then held against its plain version at the session's
-    largest two-phase window BA table and a mini-BA table, and K1 at the
-    mini-BA's empty reprojection table.
+    drifting odometry), written at the start in the reference's input file
+    formats (``synthetic.export_session_files``, with its config) and
+    entered through the port's main entry point: ``build_session`` of
+    ``obvi_slam_tpu_torch.cli.offline_object_visual_slam_main`` reads the
+    files and wires the session as a user's run gets it (the feature-based
+    bounding-box frontend and its pending-object mini-BAs, PGO with the
+    objects on every global-BA frame and the final optimization, the
+    post-session merge loop), in f32 through K1 and K2 (and
+    K4 where a two-phase window BA meets its gate); checked by its
+    trajectory error, one map object per chair within 0.5 m, the PGO
+    records and timers, and an f64 run of the plain versions on the same
+    files; then the marginal covariances through K1/K2 against the plain
+    versions in f64, and the entry point's ``write_outputs`` with every
+    output flag: the long-term map (every covariance finite and PSD, JSON
+    out and in) and every artifact read back through the port's readers
+    (the trajectory's ATE, the object metrics, the per-iteration CSVs, the
+    timers, the checkpoints); a 16-frame second session, run by the entry
+    point's ``main`` seeded from the map, must observe a map object again.
+    K2 is then held against its plain version at the session's largest
+    two-phase window BA table and a mini-BA table, and K1 at the mini-BA's
+    empty reprojection table.
 
 The two f64 plain sessions, and the second object session, run in
 processes of their own on the same card (``chip_smoke.py
---session-process session|objects|second [map.json]``): the plain ones
+--session-process session|objects|second [args]``): the plain ones
 from the start, the second one from when the map is saved, all joined at
 the end. The plain object session alone takes about as long as the main
 process's work, so every rate, time and profile of this script is taken
 with the card and the host shared with them.
 
 It prints LM iterations/s, both sessions' frames/s and ms per frame (the
-object session's timer split too), the
+object session's timer split too, and its seconds to read the input
+files, to write the outputs and to extract the map), the
 kernels' times, bounds and launch counts (K1 and K2 also with the device
 kernels per wrapper call, which must be 1, and the launch floor: a
 one-element ``torch.add``), each kernel also at the larger phases' shapes,
@@ -111,6 +119,7 @@ from obvi_slam_tpu_torch.ops import _build, band_gram, syrk  # noqa: E402
 from obvi_slam_tpu_torch.ops import bbox as k_bbox  # noqa: E402
 from obvi_slam_tpu_torch.ops import reproj as k_reproj  # noqa: E402
 from obvi_slam_tpu_torch.ops._gram import lower_pair  # noqa: E402
+from obvi_slam_tpu_torch.cli import offline_object_visual_slam_main as cli_main  # noqa: E402
 from obvi_slam_tpu_torch.timing import TimerRegistry  # noqa: E402
 from obvi_slam_tpu_torch.runner import visual_frontend_for  # noqa: E402
 from obvi_slam_tpu_torch.solver import band_solve  # noqa: E402
@@ -146,10 +155,11 @@ SESSION_KERNELS = ("reproj", "syrk")
 # reference's default config with a chair prior and PGO on every global-BA
 # frame (frames 1-50, 60 and 63 and the final optimization: the window of 50
 # slides from frame 51, so frames 51-59, 61 and 62 run the two-phase window
-# BA with the objects); then
-# a 16-frame second session of the same scene (other noise) seeded from its
-# long-term map. The last PROFILE_FRAMES online frames are profiled again
-# from a copy of the session's state taken before them.
+# BA with the objects), written in the reference's file formats and read by
+# the main entry point; then a 16-frame second session of the same scene
+# (other noise) seeded from its long-term map, through the entry point's
+# main. The last PROFILE_FRAMES online frames are profiled again from a
+# copy of the session's state taken before them.
 OBJECTS = dict(n_frames=64, n_features=1200, n_objects=16, seed=21, baseline=0.12,
                odom_noise=0.01)
 PROFILE_FRAMES = 8
@@ -160,7 +170,25 @@ OBJECT_TIMERS = ("frame_data_adder", "refine_initial_estimate_for_pending_object
 PGO_TIMERS = ("obj_only_pgo_full_process", "obj_only_pgo_local_track_solve",
               "obj_only_pgo_solve_pgo", "obj_only_pgo_opt_feat_adjust_solve")
 CHAIR_PRIOR = ([0.62, 0.62, 0.975], [0.05, 0.05, 0.05])  # mean, std per axis
-IMG_HW = {1: (480.0, 640.0), 2: (480.0, 640.0)}
+# The main entry point's output flags and their names in an output directory;
+# the per-iteration CSV types and checkpoints the object session must write.
+OUTPUTS = {
+    "--long_term_map_output": "ltm.json",
+    "--robot_poses_results_file": "robot_poses.csv",
+    "--ellipsoids_results_file": "ellipsoids.csv",
+    "--visual_feature_results_file": "features.csv",
+    "--opt_log_file": "ceres_opt_summary.csv",
+    "--timing_report_file": "timing.json",
+    "--bb_associations_out_file": "bb_assoc.json",
+    "--checkpoint_output_dir": "checkpoints",
+    "--logs_directory": "logs",
+}
+OPTLOG_TYPES = ("pending_obj_est", "pgo", "pre_pgo_track", "vf_adjust", "lba_phase_1",
+                "lba_phase_2", "gba_phase_2")
+CHECKPOINTS = (f"pose_graph_state_checkpoint_pre_optimization_{OBJECTS['n_frames'] - 1}_attempt_1",
+               "pose_graph_state_checkpoint_post_frame_add",
+               "pose_graph_state_checkpoint_post_postprocessing", "long_term_map_checkpoint",
+               "pose_graph_state")
 # Marginal covariances, K1/K2 against their plain versions, f64: each 7x7
 # block within this much of its largest entry.
 COV_TOLERANCE = 1e-6
@@ -1084,7 +1112,11 @@ def session_phase():
 
 def object_config():
     """The reference's default config with a chair shape prior and PGO on
-    every global-BA frame (and on the final one), as the paper config runs."""
+    every global-BA frame (and on the final one), as the paper config runs.
+    PGO takes the place of the visual global BA there, so the session runs
+    no global two-phase BA: its gba_phase_2 iteration CSV holds the PGO
+    solves (the reference logs them under that type too) and it writes no
+    gba_phase_1 CSV."""
     config = ot.config.FullOVSLAMConfig()
     mean, std = CHAIR_PRIOR
     config.shape_dimension_priors = [ot.config.ShapeDimensionPrior(
@@ -1095,48 +1127,59 @@ def object_config():
     return config
 
 
-def _object_runner(config, pg, fe, dtype, plain):
-    """The runner with the frontend on its bb_frontend hook and the
-    post-session merge on its object_merger hook."""
-    merge = config.post_session_object_merge_params
-    hooks = ot.runner.RunnerHooks(
-        bb_frontend=ot.make_bb_frontend_hook(fe),
-        object_merger=lambda g: ot.apply_merges(g, ot.merge_objects_by_center_proximity(
-            g, merge.max_merge_distance, merge.x_y_only_merge), fe),
-    )
-    return ot.OfflineProblemRunner(config, hooks, dtype=dtype, device=DEVICE, plain=plain)
+def export_object_sessions(root):
+    """The object session (OBJECTS) and the second session (OBJECTS_SECOND)
+    written in the reference's input formats, each with its config, under
+    ``root``: {label: (directory, ground-truth poses, ground-truth
+    objects)}."""
+    from obvi_slam_tpu_torch.synthetic import export_session_files
+
+    t0 = time.perf_counter()
+    out = {}
+    for label, size in (("objects", OBJECTS), ("second", OBJECTS_SECOND)):
+        data, gt, gt_objects = ot.synthetic_object_session(**size)
+        d = export_session_files(data, gt, Path(root) / label)
+        ot.config.write_config(object_config(), str(d / "config.json"))
+        out[label] = (d, gt, gt_objects)
+    print(f"object sessions drawn and written in the reference's file formats in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return out
 
 
-def run_objects(dtype, plain, size=None, ltm=None, stage=None, snapshot_at=None):
-    """One object session (``_drive``), wired as the reference's offline
-    object-visual SLAM entry point wires it: the pose graph seeded from
-    ``ltm``, the feature-based bounding-box frontend on the bb_frontend hook
-    (its mini-BA in ``dtype`` on the card, or the plain versions), the
-    post-session merge on the object_merger hook. ``stage[0]`` reads "mini-BA"
-    inside a pending-object mini-BA, "window" inside a two-phase window BA,
-    else None. At online frame ``snapshot_at`` a copy of the session's state
-    is taken before the frame's data adding (``_resume`` runs on from it).
-    Adds the ground truth, the odometry's ATE, the frontend, the
-    mini-BAs' (calls, LM iterations), the two-phase window BAs and the
-    snapshot (or None)."""
+def object_argv(directory, *extra):
+    """The main entry point's flags for the exported session in
+    ``directory`` on the card (f32 unless ``extra`` holds --f64)."""
+    d = Path(directory)
+    return ["--params_config_file", str(d / "config.json"),
+            "--intrinsics_file", str(d / "intrinsics.csv"),
+            "--extrinsics_file", str(d / "extrinsics.csv"),
+            "--poses_by_node_id_file", str(d / "poses.csv"),
+            "--bounding_boxes_by_node_id_file", str(d / "bounding_boxes.csv"),
+            "--low_level_feats_dir", str(d / "orb_out"), "--device", DEVICE, *extra]
+
+
+def output_argv(out):
+    """Every output flag of the main entry point, into directory ``out``."""
+    return [arg for flag, name in OUTPUTS.items() for arg in (flag, str(Path(out) / name))]
+
+
+def run_objects(args, plain, gt, gt_objects=None, stage=None, snapshot_at=None):
+    """One object session, built by the main entry point's ``build_session``
+    from the files ``args`` names (config, data, pose graph, bounding-box
+    frontend, hooks, runner and visual frontend as a user's run gets them;
+    ``plain`` the kernels' plain versions), driven by ``_drive``.
+    ``stage[0]`` reads "mini-BA" inside a pending-object mini-BA, "window"
+    inside a two-phase window BA, else None. At online frame
+    ``snapshot_at`` a copy of the session's state is taken before the
+    frame's data adding (``_resume`` runs on from it). Adds the session,
+    the ground truth, the odometry's ATE, the frontend, the mini-BAs' (calls,
+    LM iterations), the two-phase window BAs and the snapshot (or None)."""
     from obvi_slam_tpu_torch.frontend import bounding_box_frontend as bbf
 
-    size = size or OBJECTS
     stage = [None] if stage is None else stage
-    config = object_config()
-    data, gt, gt_objects = ot.synthetic_object_session(**size)
-    pg = ot.PoseGraph(data.cameras, ot.config.shape_prior_map(config))
-    if ltm is not None:
-        ot.seed_pose_graph_from_ltm(pg, ltm)
-    fe = ot.FeatureBasedBoundingBoxFrontEnd(
-        pg, config.feature_based_bb_association_params,
-        config.bounding_box_covariance_generator_params,
-        config.geometric_similarity_scorer_params, img_heights_and_widths=IMG_HW,
-        ltm_front_end_data=None if ltm is None else ltm.front_end_data,
-        dtype=dtype, device=DEVICE, plain=plain,
-    )
-    runner = _object_runner(config, pg, fe, dtype, plain)
-    vf = visual_frontend_for(runner, data)
+    session = cli_main.build_session(args, plain=plain)
+    runner, data, pg, fe = session.runner, session.data, session.pg, session.bb_frontend
+    vf = session.visual_frontend
     mini, windows, snapshot = [0, 0], [0], []
     inner, two_phase = bbf.solve, runner._solve_two_phase
 
@@ -1160,13 +1203,22 @@ def run_objects(dtype, plain, size=None, ltm=None, stage=None, snapshot_at=None)
 
     bbf.solve, runner._solve_two_phase = counted, window_ba
     try:
-        run = _drive(runner, data, pg, vf, size["n_frames"],
+        run = _drive(runner, data, pg, vf, data.max_frame_id() + 1,
                      before_frame=_snapshot_at(snapshot_at, snapshot, runner, pg, vf, fe))
     finally:
         bbf.solve = inner
-    return dict(run, gt=gt, gt_objects=gt_objects, odom_ate=_ate(data.initial_poses, gt),
-                frontend=fe, mini_ba=tuple(mini), window_bas=windows[0], config=config,
-                data=data, snapshot=snapshot[0] if snapshot else None)
+    return dict(run, session=session, gt=gt, gt_objects=gt_objects,
+                odom_ate=_ate(data.initial_poses, gt), frontend=fe, mini_ba=tuple(mini),
+                window_bas=windows[0], config=session.config, data=data,
+                snapshot=snapshot[0] if snapshot else None)
+
+
+def read_gt_poses(directory):
+    """The exported session's ground-truth trajectory, read back."""
+    from obvi_slam_tpu_torch import io as pio
+
+    poses = pio.read_poses_by_node_id(str(Path(directory) / "gt_poses.csv"))
+    return np.stack([poses[i] for i in sorted(poses)])
 
 
 def _object_matches(pg, gt_objects, radius=0.5):
@@ -1233,15 +1285,16 @@ def _compare_f32_rounding(name, kernel_out, plain_out, exact_out, live):
     ``_compare``) and 4x the plain f32 version's own max abs error against
     the f64 plain version on the same values in that row. Masked rows
     exactly 0. Returns, worst over the outputs: the max abs error, the
-    largest 1e-4 floor, the largest plain f32 error against f64 and the
-    largest ratio of a row's error to its limit."""
-    worst = dict(err=0.0, floor=0.0, plain_err=0.0, ratio=0.0)
+    largest 1e-4 floor, the largest plain f32 and kernel errors against f64
+    in a row, and the largest ratio of a row's error to its limit."""
+    worst = dict(err=0.0, floor=0.0, plain_err=0.0, kernel_err=0.0, ratio=0.0)
     for k, (a, b, x) in enumerate(zip(kernel_out, plain_out, exact_out)):
         if not bool((a[~live] == 0).all()):
             raise AssertionError(f"{name} output {k}: masked rows not exactly zero")
         n = a.shape[0]
         row_err = (a - b).abs().reshape(n, -1).amax(dim=1).double()
         row_plain = (b.double() - x).abs().reshape(n, -1).amax(dim=1)
+        row_kernel = (a.double() - x).abs().reshape(n, -1).amax(dim=1)
         floor = 1e-4 * float(b.abs().max())
         limit = torch.clamp(4.0 * row_plain, min=floor)
         ratio = torch.where(row_err == 0, torch.zeros_like(row_err), row_err / limit)
@@ -1250,10 +1303,12 @@ def _compare_f32_rounding(name, kernel_out, plain_out, exact_out, live):
             raise AssertionError(
                 f"{name} f32 output {k} row {r}: max abs err {float(row_err[r]):.3e} > "
                 f"{float(limit[r]):.3e} (1e-4 floor {floor:.3e}, plain f32 against f64 in "
-                f"that row {float(row_plain[r]):.3e})")
+                f"that row {float(row_plain[r]):.3e}, kernel f32 against f64 "
+                f"{float(row_kernel[r]):.3e})")
         worst = dict(err=max(worst["err"], float(row_err.max())),
                      floor=max(worst["floor"], floor),
                      plain_err=max(worst["plain_err"], float(row_plain.max())),
+                     kernel_err=max(worst["kernel_err"], float(row_kernel.max())),
                      ratio=max(worst["ratio"], float(ratio[r])))
     return worst
 
@@ -1300,22 +1355,29 @@ def check_object_tables(window, mini, mini_reproj):
           f"f32 {errs['reproj'][torch.float32]:.3e} - ok")
     for label, r in rounding.items():
         print(f"kernel vs plain: bbox f32 at the object session's {label} table: max abs err "
-              f"{r['err']:.3e}; 1e-4 floor {r['floor']:.3e}; plain f32 against f64 {r['plain_err']:.3e} "
-              f"(largest in a row); worst row at {r['ratio']:.3f} of its limit")
+              f"{r['err']:.3e}; 1e-4 floor {r['floor']:.3e}; plain f32 against f64 {r['plain_err']:.3e}, "
+              f"kernel f32 against f64 {r['kernel_err']:.3e} (largest in a row); worst row at "
+              f"{r['ratio']:.3f} of its limit")
     f32 = torch.float32
     return max(errs["bbox"][("window", f32)], errs["bbox"][("mini-BA", f32)]), errs["reproj"][f32]
 
 
-def objects_phase(tmp):
-    """The object session in f32 through the kernels, between a reset and a
-    read of the launch counts, with K2's operands captured at the largest
-    table of a two-phase window BA and of a mini-BA (and K1's at the
-    mini-BA's empty reprojection table); its gates (trajectory, objects, PGO,
-    two-phase window BAs, launches); the long-term map from the f32 run's
-    pose graph (marginal covariances against the plain versions, extraction,
-    JSON into directory ``tmp``, load). The same session in f64 through the
-    plain versions, and the second session seeded from the map, run in
-    session processes (``check_session_processes``)."""
+def objects_phase(tmp, exported):
+    """The object session in f32 through the kernels, entered through the
+    main entry point (``build_session`` on the exported files in
+    ``exported``), between a reset and a read of the launch counts, with
+    K2's operands captured at the largest table of a two-phase window BA and
+    of a mini-BA (and K1's at the mini-BA's empty reprojection table); its
+    gates (trajectory, objects, PGO, two-phase window BAs, launches); the
+    marginal covariances against the plain versions; then the entry point's
+    ``write_outputs`` with every output flag set (into directory ``tmp``):
+    the long-term map (finite, PSD, unchanged through JSON) and every
+    artifact read back (``check_object_outputs``). The same session in f64
+    through the plain versions, and the second session seeded from the map,
+    run in session processes (``check_session_processes``)."""
+    directory, gt, gt_objects = exported
+    out = Path(tmp) / "objects_out"
+    args = cli_main.parse_args(object_argv(directory, *output_argv(out)))
     bbox_inner, reproj_inner = ops.bbox_residuals_and_jac, ops.reproj_residuals_and_jac
     window, mini, mini_reproj, stage = [], [], [], [None]
 
@@ -1335,7 +1397,8 @@ def objects_phase(tmp):
     torch.cuda.reset_peak_memory_stats()
     try:
         ops.reset_kernel_launches()
-        run = run_objects(np.float32, False, stage=stage, snapshot_at=n_frames - PROFILE_FRAMES)
+        run = run_objects(args, False, gt, gt_objects, stage=stage,
+                          snapshot_at=n_frames - PROFILE_FRAMES)
         launches = ops.kernel_launches()
     finally:
         ops.bbox_residuals_and_jac, ops.reproj_residuals_and_jac = bbox_inner, reproj_inner
@@ -1350,10 +1413,11 @@ def objects_phase(tmp):
     card = card_line()
     print(
         f"objects ({n_frames} frames, {OBJECTS['n_features']} features generated, "
-        f"{len(pg.features)} admitted, {OBJECTS['n_objects']} chairs, stereo at "
-        f"{OBJECTS['baseline']} m; window "
+        f"{len(run['data'].feature_tracks)} tracks read, {len(pg.features)} admitted, "
+        f"{OBJECTS['n_objects']} chairs, stereo at {OBJECTS['baseline']} m; window "
         f"{config.sliding_window_params.local_ba_window_size}, global BA every "
-        f"{config.sliding_window_params.global_ba_frequency}, PGO on global BA) on {card}: "
+        f"{config.sliding_window_params.global_ba_frequency}, PGO on global BA; built by "
+        f"the main entry point from files) on {card}: "
         f"{len(log)} solves ({sum(r.phase == 0 for r in log)} PGO, {run['window_bas']} "
         f"two-phase window BAs), {iters} LM iterations, mini-BAs {run['mini_ba'][0]} with "
         f"{run['mini_ba'][1]} LM iterations; {len(pg.objects)} objects, "
@@ -1387,10 +1451,9 @@ def objects_phase(tmp):
                              "mini-BA or mini-BA reprojection table not captured")
 
     cov_err, cov_dim = check_marginals(pg, config)
-    TimerRegistry.instance().reset()
-    ltm = ot.extract_long_term_object_map(
-        pg, config, run["frontend"].get_front_end_obj_map_data(), dtype=np.float64,
-        device=DEVICE)
+    t0 = time.perf_counter()
+    ltm = cli_main.write_outputs(run["session"])
+    write_s = time.perf_counter() - t0
     if ltm is None or len(ltm.covariances) != len(pg.objects):
         raise AssertionError("objects: LTM extraction failed")
     min_eig = []
@@ -1399,13 +1462,11 @@ def objects_phase(tmp):
         min_eig.append(float(w.min() / w.max()))
         if not (np.all(np.isfinite(cov)) and w.min() >= -1e-12 * w.max()):
             raise AssertionError(f"objects: LTM covariance of object {obj} not finite PSD {w}")
-    path = str(Path(tmp) / "objects_ltm.json")
-    ltm.save(path)
-    loaded = ot.LongTermObjectMap.load(path)
+    loaded = ot.LongTermObjectMap.load(args.long_term_map_output)
     if loaded.ellipsoids.keys() != ltm.ellipsoids.keys() or any(
             not np.array_equal(loaded.covariances[k], c) for k, c in ltm.covariances.items()):
         raise AssertionError("objects: LTM changed through JSON")
-    timers.update(TimerRegistry.instance().summary())
+    timers = TimerRegistry.instance().summary()
     print(f"objects f32 timers on {card}: " + "; ".join(
         f"{name} {timers[name]['total_s']:.4f} s in {timers[name]['invocations']} calls"
         for name in OBJECT_TIMERS if name in timers))
@@ -1414,22 +1475,78 @@ def objects_phase(tmp):
     print(f"objects LTM: {len(ltm.ellipsoids)} objects, covariances finite and PSD (smallest "
           f"eigenvalue over largest per object from {min(min_eig):.3e} to {max(min_eig):.3e}), "
           "saved as JSON and loaded")
+    ltm_s = timers["ltm_extraction"]["total_s"]
+    check_object_outputs(out, pg, run, ate)
+    print(f"objects entry point I/O on {card}: inputs read in {run['session'].read_s:.4f} s; "
+          f"outputs written in {write_s - ltm_s:.4f} s besides the LTM extraction "
+          f"({ltm_s:.4f} s)")
     return dict(launches=launches, iters=iters, wall=online_s + run["final_s"],
                 window=window[0], mini=mini[0], mini_reproj=mini_reproj[0],
                 frames_per_s=len(online) / online_s, ate=ate, run=run,
-                cov_err=cov_err, cov_dim=cov_dim, ltm_path=path,
+                cov_err=cov_err, cov_dim=cov_dim, ltm_path=args.long_term_map_output,
                 ltm_objects=sorted(loaded.ellipsoids))
+
+
+def check_object_outputs(out, pg, run, ate):
+    """Every artifact of ``write_outputs`` in ``out``, read back through
+    the port's readers: the trajectory's ATE (``metrics``) equal to the
+    in-memory ATE within 1e-9 m; the ellipsoids' object metrics with recall
+    1.0 over the chairs; the association results and the LTM loading; each
+    optimization logger type's CSV with the reference's header; the timers;
+    the checkpoints."""
+    from obvi_slam_tpu_torch import io as pio
+    from obvi_slam_tpu_torch import metrics
+    from obvi_slam_tpu_torch.io.writers import read_ellipsoid_results
+    from obvi_slam_tpu_torch.optlog import _HEADER
+
+    out = Path(out)
+    gt = run["gt"]
+    poses = pio.read_poses_by_node_id(str(out / "robot_poses.csv"))
+    est = np.stack([poses[i] for i in range(len(gt))])
+    file_ate = metrics.ate_for_synced_aligned(est, gt).rmse_transl_err
+    if not abs(file_ate - ate) <= 1e-9:
+        raise AssertionError(f"objects: ATE from robot_poses.csv {file_ate!r} vs {ate!r}")
+    est_objects = read_ellipsoid_results(str(out / "ellipsoids.csv"))
+    gt_objects = {k: ("chair", e) for k, e in enumerate(run["gt_objects"])}
+    om = metrics.object_metrics(est_objects, gt_objects, max_assoc_dist=0.5)
+    if om.recall != 1.0 or om.num_gt_objs != len(gt_objects):
+        raise AssertionError(f"objects: recall {om.recall} over {om.num_gt_objs} chairs")
+    assoc_objects, _ = pio.read_bb_association_results(str(out / "bb_assoc.json"))
+    n_features = len((out / "features.csv").read_text().strip().splitlines()) - 1
+    if sorted(assoc_objects) != sorted(pg.objects) or n_features != len(pg.features):
+        raise AssertionError("objects: bb_assoc.json or features.csv do not hold the map")
+    ot.LongTermObjectMap.load(str(out / "ltm.json"))
+    for t in OPTLOG_TYPES:
+        path = out / "logs" / f"ceres_iterations_{t}.csv"
+        lines = path.read_text().splitlines() if path.exists() else []
+        if len(lines) < 2 or lines[0] != _HEADER:
+            raise AssertionError(f"objects: {path.name} missing, empty or with another header")
+    timing = json.loads((out / "timing.json").read_text())
+    missing = [t for t in OBJECT_TIMERS if t not in timing]
+    names = {p.stem for p in (out / "checkpoints").glob("*.json")}
+    if missing or not set(CHECKPOINTS) <= names:
+        raise AssertionError(f"objects: timers {missing} or checkpoints "
+                             f"{sorted(set(CHECKPOINTS) - names)} missing")
+    print(f"objects outputs read back: ATE from robot_poses.csv {file_ate:.6f} m (in memory "
+          f"{ate:.6f} m, difference {abs(file_ate - ate):.3e}); object recall {om.recall} over "
+          f"{om.num_gt_objs} chairs, mean position deviation {om.average_pos_deviation:.4f} m, "
+          f"mean IoU {om.avg_iou:.4f}; {len(assoc_objects)} objects in bb_assoc.json, "
+          f"{n_features} features; LTM loads; {len(OPTLOG_TYPES)} per-iteration CSVs; "
+          f"timing.json with {len(timing)} timers; {len(names)} checkpoints")
 
 
 def profile_objects(run):
     """The f32 object session's last PROFILE_FRAMES online frames again,
     run on from the copy of its state taken before them (``_resume``), under
-    torch.profiler (as profile_session)."""
+    torch.profiler (as profile_session): a fresh session from the main entry
+    point, its bounding-box frontend given the copy's state."""
     last = OBJECTS["n_frames"]
     frames = range(last - PROFILE_FRAMES, last)
-    runner = _object_runner(run["config"], run["snapshot"][2], run["snapshot"][4],
-                            np.float32, False)
-    prof, wall = _resume(run, runner, frames)["profile"]
+    args = copy.copy(run["session"].args)
+    args.checkpoint_output_dir = args.logs_directory = ""
+    fresh = cli_main.build_session(args)
+    fresh.bb_frontend.__dict__.update(run["snapshot"][4].__dict__)
+    prof, wall = _resume(run, fresh.runner, frames)["profile"]
     profile_summary(f"objects frames {frames[0]}-{frames[-1]}", prof, wall, PROFILE_FRAMES,
                     "frame")
 
@@ -1839,34 +1956,60 @@ SESSION_PROCESS_ARG = "--session-process"
 
 
 def session_process(label, *args):
-    """The body of a session process. ``label`` "session" and "objects": the
-    session or the object session in f64 through the plain versions, the
-    reference of that phase's trajectory gate; "second": the 16-frame f32
-    object session through the kernels, seeded from the long-term map saved
-    at ``args[0]``. Prints, as its last line, one JSON object with the
-    session's ATE, objects, map objects observed again, solves, LM
-    iterations, times and kernel launches."""
+    """The body of a session process. ``label`` "session": the visual
+    session in f64 through the plain versions; "objects": the object session
+    exported in directory ``args[0]``, read by the main entry point's
+    ``build_session(..., plain=True)`` in f64, the reference of that phase's
+    trajectory gate; "second": the main entry point's ``main`` on the second
+    session exported in ``args[0]``, in f32 through the kernels, seeded from
+    the long-term map at ``args[1]``, writing every output into ``args[2]``.
+    Prints, as its last line, one JSON object with the session's ATE,
+    objects, map objects observed again (the second session: read from its
+    files), solves, LM iterations, times and kernel launches."""
     preconditions()
     torch.set_num_threads(2)
     ops.reset_kernel_launches()
-    ltm, size = None, OBJECTS
+    if label == "second":
+        print(json.dumps(second_session(*args)))
+        return
     if label == "session":
-        run, size = run_session(np.float64, True), SESSION
-    elif label == "objects":
-        run = run_objects(np.float64, True)
+        run, n_frames = run_session(np.float64, True), SESSION["n_frames"]
     else:
-        ltm, size = ot.LongTermObjectMap.load(args[0]), OBJECTS_SECOND
-        run = run_objects(np.float32, False, size=size, ltm=ltm)
+        gt = read_gt_poses(args[0])
+        run = run_objects(cli_main.parse_args(object_argv(args[0], "--f64")), True, gt)
+        n_frames = len(gt)
     pg, log = run["pg"], run["runner"].opt_log
-    n_frames = size["n_frames"]
     print(json.dumps(dict(
         ate=_ate([pg.get_robot_pose(i) for i in range(n_frames)], run["gt"]),
-        objects=len(pg.objects), merged=len(pg.merged_objects),
-        again=[] if ltm is None else sorted(
-            o for o in ltm.ellipsoids if o in pg.objects and pg.obj_obs_by_object.get(o)),
+        objects=len(pg.objects), merged=len(pg.merged_objects), again=[],
         solves=len(log), iterations=sum(x.iterations for x in log),
         online_s=run["online_s"], final_s=run["final_s"],
         mini_ba=list(run.get("mini_ba", (0, 0))), launches=ops.kernel_launches())))
+
+
+def second_session(directory, ltm_path, out):
+    """The main entry point's ``main`` on the second session, seeded from
+    the map; what it did, read from its output files."""
+    from obvi_slam_tpu_torch import io as pio
+
+    argv = object_argv(directory, "--long_term_map_input", ltm_path, *output_argv(out))
+    if cli_main.main(argv) != 0:
+        raise RuntimeError("the second session's main returned non-zero")
+    out = Path(out)
+    ltm = ot.LongTermObjectMap.load(ltm_path)
+    objects, assoc = pio.read_bb_association_results(str(out / "bb_assoc.json"))
+    state = json.loads((out / "checkpoints" / "pose_graph_state.json").read_text())
+    timing = json.loads((out / "timing.json").read_text())
+    rows = [r.split(",") for r in (out / "ceres_opt_summary.csv").read_text().splitlines()[1:]]
+    poses = pio.read_poses_by_node_id(str(out / "robot_poses.csv"))
+    gt = read_gt_poses(directory)
+    return dict(
+        ate=_ate(poses, gt), objects=len(objects), merged=len(state["merged_objects"]),
+        again=sorted(o for o in ltm.ellipsoids if assoc.get(o)), solves=len(rows),
+        iterations=sum(int(r[9]) for r in rows),
+        online_s=timing["offline_runner_online_portion"]["total_s"],
+        final_s=timing["offline_runner_offline_portion"]["total_s"], mini_ba=[0, 0],
+        launches=ops.kernel_launches())
 
 
 def start_session_process(label, *args):
@@ -1920,9 +2063,10 @@ def check_session_processes(results, session, objects):
         if any(r["launches"].values()):
             raise AssertionError(f"the plain {label} run launched kernels: {r['launches']}")
     r = results["second"]
-    print(f"objects second session (session process, {OBJECTS_SECOND['n_frames']} frames, "
-          f"seeded with the {len(objects['ltm_objects'])} map objects): {r['objects']} objects, "
-          f"{r['merged']} merged, map objects observed again {r['again']}; online "
+    print(f"objects second session (session process, the main entry point on "
+          f"{OBJECTS_SECOND['n_frames']} frames, seeded with the {len(objects['ltm_objects'])} "
+          f"map objects): ATE {r['ate']:.6f} m, {r['objects']} objects, {r['merged']} merged, "
+          f"map objects observed again (in its bb_assoc.json) {r['again']}; online "
           f"{r['online_s']:.4f} s, {r['iterations']} LM iterations, launches {r['launches']}")
     if not r["again"]:
         raise AssertionError("objects: the second session re-associated no map object")
@@ -1933,9 +2077,12 @@ def check_session_processes(results, session, objects):
 def main():
     t_start = time.perf_counter()
     preconditions()
-    workers = {label: start_session_process(label) for label in ("session", "objects")}
     tmp = tempfile.TemporaryDirectory()
+    workers = {}
     try:
+        exported = export_object_sessions(tmp.name)
+        workers["session"] = start_session_process("session")
+        workers["objects"] = start_session_process("objects", str(exported["objects"][0]))
         build()
         check_kernels(np.float64)
         errs = check_kernels(np.float32)
@@ -1956,8 +2103,10 @@ def main():
         errs["syrk"] = max(errs["syrk"], check_session_gram(session["syrk_operand"]))
         errs["reproj"] = max(errs["reproj"], check_session_reproj(*session["reproj_operands"]))
         print(f"[{time.perf_counter() - t_start:.1f} s] session phase done")
-        objects = objects_phase(tmp.name)
-        workers["second"] = start_session_process("second", objects["ltm_path"])
+        objects = objects_phase(tmp.name, exported["objects"])
+        workers["second"] = start_session_process(
+            "second", str(exported["second"][0]), objects["ltm_path"],
+            str(Path(tmp.name) / "second_out"))
         print(f"[{time.perf_counter() - t_start:.1f} s] objects phase done")
         bbox_err, reproj_err = check_object_tables(
             objects["window"], objects["mini"], objects["mini_reproj"])

@@ -11,7 +11,8 @@ reference's default object data association):
     -> greedy assignment
     -> existing object: add observation; else append/create pending object
     -> refine pending estimates (mini-BA: bbox + shape prior, poses fixed,
-       one LM solve of the port's solver on ``device``)
+       one LM solve of the port's solver on ``device``, its iterations
+       to the optimization logger as pending_obj_est)
     -> tryInitializeEllipsoid -> merge-or-create (geometric similarity =
        negative center distance within max_merge_distance)
     -> cleanup: stale pending discard + feature-validity-window expiry
@@ -37,6 +38,7 @@ import scipy.linalg
 import torch
 
 from obvi_slam_tpu_torch import config as cfg
+from obvi_slam_tpu_torch import optlog
 from obvi_slam_tpu_torch import types as T
 from obvi_slam_tpu_torch.frontend.visual_features import _pose_to_rt
 from obvi_slam_tpu_torch.offline_data import RawBoundingBox
@@ -484,8 +486,12 @@ class FeatureBasedBoundingBoxFrontEnd:
         from obvi_slam_tpu_torch.runner import lm_params_from_config
 
         lm_params = lm_params_from_config(est_params.solver_params)
-        new_state, _ = solve(
+        new_state, summary = solve(
             state, cams, tables, plan, free, params=lm_params, huber=huber, plain=self.plain
+        )
+        optlog.IterationLoggerFactory.instance().log_iterations(
+            optlog.PENDING_ESTIMATOR_TYPE, "_".join(str(t) for t in targets), summary,
+            7 * len(targets),
         )
         new_objects = new_state.objects.cpu().numpy().astype(np.float64)
         for idx in targets:

@@ -31,6 +31,16 @@
 // record in shared memory; the block then writes its factors' slices of the
 // three outputs contiguously with 16-byte stores. Masked and invalid rows go
 // through the same records.
+//
+// Precision: for f32 tables a lane loads f32 and computes in f64, rounding
+// its 4 outputs to f32 once (Compute<T>). The conic's entries subtract
+// products of the camera-to-centre offset (b_i b_j, tens of m^2) down to
+// terms of the ellipsoid's size, and the corners divide differences of
+// those, so an f32 chain loses ~4 digits there and two f32 chains (this
+// kernel's and the plain version's, in other operation orders) disagree by
+// up to ~1e-4 of the largest residual near an optimum. In f64 the outputs
+// are the correctly computed values rounded to f32. The f64 pipe of an H100
+// runs at half the f32 rate, and K2 is bound by its launch (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -43,6 +53,10 @@ constexpr int kLanes = 16;            // lanes per factor: a half-warp
 constexpr int kFactorsPerBlock = 8;
 constexpr int kThreads = kLanes * kFactorsPerBlock;
 constexpr int kResidualLane = 13;     // lanes 0-6 J_obj, 7-12 J_pose, 13 r
+
+// The type a lane computes in: f64 for f32 tables too (see the header).
+template <typename T> struct Compute { using type = T; };
+template <> struct Compute<float> { using type = double; };
 
 // d(corners) from the dual-conic perturbation (dA columns, db, dd).
 template <typename T>
@@ -87,65 +101,67 @@ __device__ __forceinline__ void column(const T m3[3][3], int m, T out[3]) {
 }
 
 // The 4 values of one lane of a live factor: lane k < 7 column k of J_obj,
-// lane 7 + m column m of J_pose, lanes >= 13 the residual.
-template <typename T>
+// lane 7 + m column m of J_pose, lanes >= 13 the residual. Inputs of the
+// storage type T, every operation in the compute type C (Compute<T>).
+template <typename C, typename T>
 __device__ __forceinline__ void bbox_lane(
-    int lane, T invalid_error, const T* __restrict__ e, const T* __restrict__ pose,
+    int lane, C invalid_error, const T* __restrict__ e, const T* __restrict__ pose,
     const T* __restrict__ c_r, const T* __restrict__ c_t, const T* __restrict__ obs,
-    const T* __restrict__ s_inf, T out[4]) {
-  T rt[3][3], jr[3][3], cr[3][3], rwc[3][3];
-  factor::pose_rotation(pose[3], pose[4], pose[5], rt, jr);
+    const T* __restrict__ s_inf, C out[4]) {
+  C rt[3][3], jr[3][3], cr[3][3], rwc[3][3];
+  factor::pose_rotation(C(pose[3]), C(pose[4]), C(pose[5]), rt, jr);
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j) cr[i][j] = c_r[3 * i + j];
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j)
       rwc[i][j] = cr[i][0] * rt[0][j] + cr[i][1] * rt[1][j] + cr[i][2] * rt[2][j];
 
-  const T yaw_c = cos(e[3]), yaw_s = sin(e[3]);
-  T ac[3][3], b[3], d[3];  // ac[k][i] = A[i][k]: column k of A
+  const C yaw = e[3];
+  const C yaw_c = cos(yaw), yaw_s = sin(yaw);
+  C ac[3][3], b[3], d[3];  // ac[k][i] = A[i][k]: column k of A
   for (int i = 0; i < 3; ++i) {
     ac[0][i] = yaw_c * rwc[i][0] + yaw_s * rwc[i][1];
     ac[1][i] = -yaw_s * rwc[i][0] + yaw_c * rwc[i][1];
     ac[2][i] = rwc[i][2];
   }
-  const T tmt[3] = {e[0] - pose[0], e[1] - pose[1], e[2] - pose[2]};
-  T pr[3], cpr[3];
+  const C tmt[3] = {C(e[0]) - C(pose[0]), C(e[1]) - C(pose[1]), C(e[2]) - C(pose[2])};
+  C pr[3], cpr[3];
   mat3_vec(rt, tmt, pr);
   mat3_vec(cr, pr, cpr);
-  for (int i = 0; i < 3; ++i) b[i] = cpr[i] + c_t[i];
-  for (int k = 0; k < 3; ++k) d[k] = (e[4 + k] * T(0.5)) * (e[4 + k] * T(0.5)) + T(1e-3);
+  for (int i = 0; i < 3; ++i) b[i] = cpr[i] + C(c_t[i]);
+  for (int k = 0; k < 3; ++k) d[k] = (C(e[4 + k]) * C(0.5)) * (C(e[4 + k]) * C(0.5)) + C(1e-3);
 
   auto q_entry = [&](int i, int j) {
-    T s = T(0);
+    C s = C(0);
     for (int k = 0; k < 3; ++k) s += ac[k][i] * d[k] * ac[k][j];
     return s - b[i] * b[j];
   };
-  const T q11 = q_entry(0, 0), q13 = q_entry(0, 2), q22 = q_entry(1, 1);
-  const T q23 = q_entry(1, 2), q33 = q_entry(2, 2);
-  const T x_inner = q13 * q13 - q11 * q33;
-  const T y_inner = q23 * q23 - q22 * q33;
-  if (!(x_inner > T(0) && y_inner > T(0))) {  // uniform over the factor's lanes
-    const T v = lane >= kResidualLane ? invalid_error : T(0);
+  const C q11 = q_entry(0, 0), q13 = q_entry(0, 2), q22 = q_entry(1, 1);
+  const C q23 = q_entry(1, 2), q33 = q_entry(2, 2);
+  const C x_inner = q13 * q13 - q11 * q33;
+  const C y_inner = q23 * q23 - q22 * q33;
+  if (!(x_inner > C(0) && y_inner > C(0))) {  // uniform over the factor's lanes
+    const C v = lane >= kResidualLane ? invalid_error : C(0);
     for (int i = 0; i < 4; ++i) out[i] = v;
     return;
   }
-  const T sx = sqrt(x_inner > T(1e-12) ? x_inner : T(1e-12));
-  const T sy = sqrt(y_inner > T(1e-12) ? y_inner : T(1e-12));
-  const T q33s = fabs(q33) < T(1e-12) ? T(1e-12) : q33;
-  const T i33 = T(1) / q33s;
-  const T g33 = fabs(q33) >= T(1e-12) ? T(1) : T(0);
-  const T inv_sx = (x_inner >= T(1e-12) ? T(1) : T(0)) / sx;
-  const T inv_sy = (y_inner >= T(1e-12) ? T(1) : T(0)) / sy;
+  const C sx = sqrt(x_inner > C(1e-12) ? x_inner : C(1e-12));
+  const C sy = sqrt(y_inner > C(1e-12) ? y_inner : C(1e-12));
+  const C q33s = fabs(q33) < C(1e-12) ? C(1e-12) : q33;
+  const C i33 = C(1) / q33s;
+  const C g33 = fabs(q33) >= C(1e-12) ? C(1) : C(0);
+  const C inv_sx = (x_inner >= C(1e-12) ? C(1) : C(0)) / sx;
+  const C inv_sy = (y_inner >= C(1e-12) ? C(1) : C(0)) / sy;
 
   // This lane's perturbation of the conic's inputs.
-  T da[3][3] = {{T(0), T(0), T(0)}, {T(0), T(0), T(0)}, {T(0), T(0), T(0)}};
-  T db[3] = {T(0), T(0), T(0)}, dd[3] = {T(0), T(0), T(0)};
-  T sign = T(1);
+  C da[3][3] = {{C(0), C(0), C(0)}, {C(0), C(0), C(0)}, {C(0), C(0), C(0)}};
+  C db[3] = {C(0), C(0), C(0)}, dd[3] = {C(0), C(0), C(0)};
+  C sign = C(1);
   if (lane < 3 || (lane >= 7 && lane < 10)) {
     // Ellipsoid centre t_e (object cols 0-2); the pose translation (pose
     // cols 0-2) is its negation.
     column(rwc, lane < 3 ? lane : lane - 7, db);
-    sign = lane < 3 ? T(1) : T(-1);
+    sign = lane < 3 ? C(1) : C(-1);
   } else if (lane == 3) {
     // Yaw: dA[:,0] = A[:,1], dA[:,1] = -A[:,0].
     for (int i = 0; i < 3; ++i) {
@@ -154,14 +170,14 @@ __device__ __forceinline__ void bbox_lane(
     }
   } else if (lane < 7) {
     // Dimensions (object cols 4-6): d(d_m)/d(dims_m) = dims_m / 2.
-    for (int k = 0; k < 3; ++k) dd[k] = lane - 4 == k ? e[4 + k] * T(0.5) : T(0);
+    for (int k = 0; k < 3; ++k) dd[k] = lane - 4 == k ? C(e[4 + k]) * C(0.5) : C(0);
   } else if (lane < kResidualLane) {
     // Pose rotation w_m (pose cols 3-5): dA[:,j] = C_r (U[:,j] x g) and
     // db = C_r (p_r x g), with U = R^T Re and g = Jr[:, m].
-    T g[3], tmp[3];
+    C g[3], tmp[3];
     column(jr, lane - 10, g);
     for (int j = 0; j < 3; ++j) {
-      T u[3];  // column j of U
+      C u[3];  // column j of U
       for (int i = 0; i < 3; ++i)
         u[i] = j == 0 ? yaw_c * rt[i][0] + yaw_s * rt[i][1]
                       : (j == 1 ? -yaw_s * rt[i][0] + yaw_c * rt[i][1] : rt[i][2]);
@@ -171,18 +187,18 @@ __device__ __forceinline__ void bbox_lane(
     cross3(pr, g, tmp);
     mat3_vec(cr, tmp, db);
   }
-  T dc[4];
+  C dc[4];
   corner_derivative(ac, b, d, q11, q13, q22, q23, q33, sx, sy, i33, inv_sx, inv_sy, g33,
                     da, db, dd, dc);
   if (lane >= kResidualLane) {
-    dc[0] = (q13 + sx) * i33 - obs[0];
-    dc[1] = (q13 - sx) * i33 - obs[1];
-    dc[2] = (q23 + sy) * i33 - obs[2];
-    dc[3] = (q23 - sy) * i33 - obs[3];
+    dc[0] = (q13 + sx) * i33 - C(obs[0]);
+    dc[1] = (q13 - sx) * i33 - C(obs[1]);
+    dc[2] = (q23 + sy) * i33 - C(obs[2]);
+    dc[3] = (q23 - sy) * i33 - C(obs[3]);
   }
   for (int i = 0; i < 4; ++i) {
-    T s = T(0);
-    for (int j = 0; j < 4; ++j) s += s_inf[4 * i + j] * dc[j];
+    C s = C(0);
+    for (int j = 0; j < 4; ++j) s += C(s_inf[4 * i + j]) * dc[j];
     out[i] = sign * s;
   }
 }
@@ -212,10 +228,11 @@ __global__ void __launch_bounds__(kThreads) bbox_kernel(
   const int nf = min(kFactorsPerBlock, n - f0);
   const int f = f0 + slot;
   if (f < n) {
-    T out[4] = {T(0), T(0), T(0), T(0)};
+    using C = typename Compute<T>::type;
+    C out[4] = {C(0), C(0), C(0), C(0)};
     if (mask[f]) {
       const int c = factor::clamp_index(cam_idx[f], n_cam);
-      bbox_lane(lane, invalid_error, objects + 7 * factor::clamp_index(obj_idx[f], n_obj),
+      bbox_lane<C>(lane, C(invalid_error), objects + 7 * factor::clamp_index(obj_idx[f], n_obj),
                 poses + 6 * factor::clamp_index(pose_idx[f], n_pose), cam_r + 9 * c,
                 cam_t + 3 * c, rect_corners + 4 * f, sqrt_inf + 16 * f, out);
     }
@@ -223,7 +240,7 @@ __global__ void __launch_bounds__(kThreads) bbox_kernel(
       T* rec = lane < 7 ? s_jo + 28 * slot + lane
                         : (lane < kResidualLane ? s_jp + 24 * slot + (lane - 7) : s_r + 4 * slot);
       const int stride = lane < 7 ? 7 : (lane < kResidualLane ? 6 : 1);
-      for (int i = 0; i < 4; ++i) rec[stride * i] = out[i];
+      for (int i = 0; i < 4; ++i) rec[stride * i] = T(out[i]);
     }
   }
   __syncthreads();

@@ -15,7 +15,8 @@ Counterpart of ``obvi_slam_tpu/pgo.py`` (the reference's
 
 Each solve is one LM solve of the runner (``runner.solve``) on its device;
 the window problems come from the runner's caps pools "pgo_tracking", "pgo"
-and "pgo_vf".
+and "pgo_vf". Each solve's LM iterations go to the optimization logger
+(``optlog``: pre_pgo_track, pgo, vf_adjust).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import List, Tuple
 import numpy as np
 from scipy.spatial.transform import Rotation
 
+from obvi_slam_tpu_torch import optlog
 from obvi_slam_tpu_torch.frontend.visual_features import _pose_to_rt
 from obvi_slam_tpu_torch.solver.problem import write_back
 from obvi_slam_tpu_torch.timing import timer
@@ -34,7 +36,7 @@ from obvi_slam_tpu_torch.timing import timer
 def run_tracking_solve(runner, data, pg, next_frame_id):
     """Pre-PGO tracking solve: a BA over the newest pose and the
     ``poses_prior_to_window_to_keep_constant`` poses before it (held)."""
-    from obvi_slam_tpu_torch.runner import lm_params_from_config
+    from obvi_slam_tpu_torch.runner import lm_params_from_config, log_iterations
 
     en = runner.config.optimization_factors_enabled_params
     min_frame = max(0, next_frame_id - en.poses_prior_to_window_to_keep_constant)
@@ -47,13 +49,18 @@ def run_tracking_solve(runner, data, pg, next_frame_id):
             lm_params_from_config(runner.config.pgo_solver_params.pre_pgo_tracking_solver_params),
         )
     write_back(pg, problem, state)
+    log_iterations(optlog.PRE_PGO_TRACK_TYPE, next_frame_id, summary, problem)
     return summary
 
 
 def run_pgo_plus_ellipsoids(runner, data, pg, max_frame_id, final_run, attempt_num=0):
     """Steps 2-4 over frames [0, max_frame_id]; the PGO solve is logged as
     phase 0. Returns False when a pose of the chain is missing."""
-    from obvi_slam_tpu_torch.runner import generate_odom_cov, lm_params_from_config
+    from obvi_slam_tpu_torch.runner import (
+        generate_odom_cov,
+        lm_params_from_config,
+        log_iterations,
+    )
 
     pgo_params = runner.config.pgo_solver_params
 
@@ -105,6 +112,7 @@ def run_pgo_plus_ellipsoids(runner, data, pg, max_frame_id, final_run, attempt_n
         )
         state, summary = runner.solve(problem, lm_params_from_config(solver_params))
     write_back(pg, problem, state)
+    log_iterations(optlog.PGO_TYPE, max_frame_id, summary, problem)
     runner._log_solve(problem, summary, max_frame_id, True, 0, attempt_num)
 
     # 3. Analytic feature re-anchoring.
@@ -133,6 +141,7 @@ def run_pgo_plus_ellipsoids(runner, data, pg, max_frame_id, final_run, attempt_n
                 if final_run
                 else pgo_params.post_pgo_vf_adjustment_solver_params
             )
-            vf_state, _ = runner.solve(vf_problem, lm_params_from_config(vf_params))
+            vf_state, vf_summary = runner.solve(vf_problem, lm_params_from_config(vf_params))
+            log_iterations(optlog.VF_ADJUST_TYPE, max_frame_id, vf_summary, vf_problem)
         write_back(pg, vf_problem, vf_state)
     return True

@@ -13,17 +13,18 @@ Counterpart of ``obvi_slam_tpu/runner.py`` (``OfflineProblemRunner``):
           build the window problem (solver.problem, session caps pool)
           two-phase BA: phase-1 LM, outlier ranking + factor re-selection,
           phase-2 LM from the window's input values (one solve_two_phase
-          call), or one LM solve when feature_outlier_percentage is 0
+          call, or the host loop: see ``OfflineProblemRunner``), or one LM
+          solve when feature_outlier_percentage is 0
           jump check -> revert
   final: run_optimization_iteration(0, N)
   merge loop: while the object_merger hook merges -> full re-optimization
 
 The pose graph stays on the host; each window's tables go to ``device``.
-Timer names are the reference's (``timing.timer``). Not ported, each raising
-``NotImplementedError``: the host-loop two-phase branch
-(``use_fused_solver=False``) and the multi-device ``mesh`` /
-``shard_local_ba``. The reference's capacity presizing, device diff-sync and
-optimization logger are not ported either.
+Timer names are the reference's (``timing.timer``). Every solve's LM
+iterations go to the optimization logger (``optlog``) when it has a
+directory. Not ported, each raising ``NotImplementedError``: the
+multi-device ``mesh`` / ``shard_local_ba``. The reference's capacity
+presizing and device diff-sync are not ported either.
 """
 
 from __future__ import annotations
@@ -36,15 +37,22 @@ import numpy as np
 from scipy.spatial.transform import Rotation
 
 from obvi_slam_tpu_torch import config as cfg
+from obvi_slam_tpu_torch import factors as fac
+from obvi_slam_tpu_torch import optlog
 from obvi_slam_tpu_torch.frontend.visual_features import VisualFeatureFrontend, _pose_to_rt
 from obvi_slam_tpu_torch.offline_data import OfflineProblemData
 from obvi_slam_tpu_torch.pgo import run_pgo_plus_ellipsoids, run_tracking_solve
-from obvi_slam_tpu_torch.pose_graph import PoseGraph
+from obvi_slam_tpu_torch.pose_graph import (
+    OBJECT_OBSERVATION_FACTOR,
+    REPROJECTION_FACTOR,
+    PoseGraph,
+)
 from obvi_slam_tpu_torch.solver import LMParams, TwoPhaseConfig, solve, solve_two_phase
 from obvi_slam_tpu_torch.solver.problem import (
     Problem,
     Scope,
     build_problem,
+    reweight_for_exclusions,
     update_caps_pool,
     write_back,
 )
@@ -82,6 +90,17 @@ def generate_odom_cov(rel_pose: np.ndarray, cov_params) -> np.ndarray:
         + np.linalg.norm(transl) * cov_params.transl_error_mult_for_rot_error
     )
     return np.diag(np.maximum(std, k_min_std) ** 2)
+
+
+def log_iterations(opt_type: str, opt_id, summary, problem: Problem):
+    """A solve's LM iterations to the optimization logger, when it has a
+    directory, with the problem's free parameters (the reference's
+    num_parameters_reduced: 6 per free pose, 3 per point, 7 per object)."""
+    ilf = optlog.IterationLoggerFactory.instance()
+    if ilf.enabled:
+        f = problem.free
+        n_free = int(6 * f.poses.sum() + 3 * f.points.sum() + 7 * f.objects.sum())
+        ilf.log_iterations(opt_type, str(opt_id), summary, n_free)
 
 
 def lm_params_from_config(p: cfg.OptimizationSolverParams) -> LMParams:
@@ -138,7 +157,16 @@ class OfflineProblemRunner:
     """Runs a session's per-frame optimizations on ``device``.
 
     ``dtype`` is the numpy float type of the window tables; ``plain`` runs
-    every kernel's plain PyTorch version (reference runs)."""
+    every kernel's plain PyTorch version (reference runs).
+
+    ``use_fused_solver``: None or True run each two-phase window as one
+    ``solve_two_phase`` call (outlier ranking and re-selection on the
+    device); False runs the reference's host loop (phase-1 solve, outlier
+    ranking on the host, ``reweight_for_exclusions``, phase-2 solve, each
+    phase under its own timers). Both select the same exclusions. The
+    reference picks by device when None (its fused loop is one device
+    program); the port's fused loop is already a host loop with one readback
+    per LM iteration, so None takes it on every device."""
 
     def __init__(
         self,
@@ -153,13 +181,12 @@ class OfflineProblemRunner:
     ):
         if mesh is not None or shard_local_ba:
             raise NotImplementedError("the multi-device runner (mesh) is not ported")
-        if use_fused_solver is False:
-            raise NotImplementedError("the host-loop two-phase branch is not ported")
         self.config = config
         self.hooks = hooks or RunnerHooks()
         self.dtype = dtype
         self.device = device
         self.plain = plain
+        self.use_fused_solver = use_fused_solver
         self.opt_log: List[OptLogRecord] = []
         self.visual_frontend = None  # set by run_optimization
         # Session high-water capacity pools, one per solve class ("local",
@@ -318,12 +345,17 @@ class OfflineProblemRunner:
             with timer(f"phase_one_{tag}_build_opt"):
                 problem = self._build_problem(pg, scope, key)
             snapshot = pg.snapshot_values()
-            if two_phase:
+            if two_phase and self.use_fused_solver is not False:
                 # Both phases in one call; the timer covers both.
                 with timer(f"phase_one_{tag}_solve_opt"):
                     state, s1, s2 = self._solve_two_phase(problem, iteration_params)
                 self._log_solve(problem, s1, next_frame_id, global_ba, 1, attempt_num)
                 self._log_solve(problem, s2, next_frame_id, global_ba, 2, attempt_num)
+            elif two_phase:
+                state = self._solve_two_phase_host(
+                    pg, problem, snapshot, iteration_params, tag, next_frame_id, global_ba,
+                    attempt_num,
+                )
             else:
                 with timer(f"phase_one_{tag}_solve_opt"):
                     state, summary = self.solve(
@@ -375,6 +407,49 @@ class OfflineProblemRunner:
             problem.huber, tp_cfg, plain=self.plain,
         )
 
+    def _solve_two_phase_host(
+        self, pg, problem, snapshot, iteration_params, tag, frame_id, global_ba, attempt
+    ):
+        """The reference's host loop of a two-phase window: phase-1 solve,
+        the worst ``feature_outlier_percentage`` of live reprojection and
+        bounding-box rows ranked on the host (stable argsort of the squared
+        residuals, the f32 floor(n_live * pct) count, as the device pass),
+        the values restored, the phase-2 weights from the exclusion set, and
+        the phase-2 solve from the window's input values. Returns the final
+        state."""
+        with timer(f"phase_one_{tag}_solve_opt"):
+            state, summary = self.solve(
+                problem, lm_params_from_config(iteration_params.phase_one_opt_params)
+            )
+        self._log_solve(problem, summary, frame_id, global_ba, 1, attempt)
+
+        res = fac.all_residuals(state, problem.cams, problem.tables,
+                                problem.huber.invalid_ellipse_error)
+        pct = np.float32(iteration_params.feature_outlier_percentage)
+        excluded = set()
+        for ftype, key, rows in (
+            (REPROJECTION_FACTOR, "reproj", problem.reproj_rows),
+            (OBJECT_OBSERVATION_FACTOR, "bbox", problem.bbox_rows),
+        ):
+            r = res[key].detach().cpu().numpy()[: len(rows)]
+            sq = np.sum(r * r, axis=1)
+            live = np.nonzero(problem.base_weights_np[key] > 0)[0]
+            n_out = int(np.floor(np.float32(len(live)) * pct))
+            if n_out > 0:
+                worst = live[np.argsort(-sq[live], kind="stable")[:n_out]]
+                excluded.update((ftype, int(rows[i])) for i in worst)
+
+        pg.restore_values(snapshot)
+        with timer(f"phase_two_{tag}_build_opt"):
+            weights2 = reweight_for_exclusions(pg, problem, excluded)
+        with timer(f"phase_two_{tag}_solve_opt"):
+            state, summary = self.solve(
+                problem, lm_params_from_config(iteration_params.phase_two_opt_params),
+                weights=weights2,
+            )
+        self._log_solve(problem, summary, frame_id, global_ba, 2, attempt)
+        return state
+
     def _consecutive_poses_stable(self, pg, min_frame, max_frame, transl_tol, orient_tol):
         """False when two consecutive poses of the window lie further apart
         than the translation or orientation tolerance."""
@@ -405,6 +480,13 @@ class OfflineProblemRunner:
             iterations=summary.num_iterations,
             termination=summary.termination,
         ))
+        # As the reference's: a PGO solve (phase 0) is logged under the
+        # phase-2 type too.
+        if global_ba:
+            opt_type = optlog.GBA_PHASE1_TYPE if phase == 1 else optlog.GBA_PHASE2_TYPE
+        else:
+            opt_type = optlog.LBA_PHASE1_TYPE if phase == 1 else optlog.LBA_PHASE2_TYPE
+        log_iterations(opt_type, frame_id, summary, problem)
         if self.hooks.solve_logger is not None:
             self.hooks.solve_logger(frame_id, summary, phase)
 
@@ -485,6 +567,11 @@ def visual_frontend_for(runner: OfflineProblemRunner, data: OfflineProblemData):
         gba_checker=lambda f: runner._gba_checker(f, max_frame_id),
         reprojection_error_provider=lambda *a: vp.reprojection_error_std_dev,
         min_parallax_pixel=vp.min_visual_feature_parallax_pixel_requirement,
+        min_parallax_transl=vp.min_visual_feature_parallax_robot_transl_requirement,
+        min_parallax_orient=vp.min_visual_feature_parallax_robot_orient_requirement,
+        enforce_pixel_parallax=vp.enforce_min_pixel_parallax_requirement,
+        enforce_pose_parallax=vp.enforce_min_robot_pose_parallax_requirement,
         inlier_epipolar_err_thresh=vp.inlier_epipolar_err_thresh,
         check_past_n_frames=vp.check_past_n_frames_for_epipolar_err,
+        enforce_epipolar=vp.enforce_epipolar_error_requirement,
     )

@@ -13,9 +13,13 @@ as the reference's runner tests draw theirs (``make_session`` in
 ``tests/test_runner_e2e.py``). ``synthetic_object_session`` adds chair-class
 ellipsoids with detections, drawn as the reference's object tests draw
 theirs (``make_object_session`` in ``tests/test_bb_frontend.py``).
+``export_session_files`` writes a session in the reference's input file
+formats, for the command-line entry points (``obvi_slam_tpu_torch.cli``).
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -459,3 +463,68 @@ def synthetic_object_session(
         bounding_boxes=bounding_boxes,
     )
     return data, gt_poses, gt_objects
+
+
+def _pose_row(node, p) -> str:
+    q = Rotation.from_rotvec(p[3:6]).as_quat()
+    return f"{node},{p[0]},{p[1]},{p[2]},{q[0]},{q[1]},{q[2]},{q[3]}\n"
+
+
+def export_session_files(data: OfflineProblemData, gt_poses, out_dir) -> Path:
+    """Writes a session in the reference's input file formats into
+    ``out_dir`` (``io/readers.py`` reads them back): ``intrinsics.csv`` and
+    ``extrinsics.csv`` (640 x 480 images), ``poses.csv`` (the initial
+    trajectory), ``gt_poses.csv`` (``gt_poses``, for the metrics),
+    ``bounding_boxes.csv`` and the ORB output directory ``orb_out/`` (one
+    file per frame, each feature line ``feat_id`` followed by one ``cam_id x
+    y`` triple per camera that sees it; ``features/features.txt`` with the
+    initial positions). Returns ``out_dir`` as a Path."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out / "intrinsics.csv", "w") as f:
+        f.write("camera_id,img_width,img_height,mat_00,mat_01,mat_02,mat_10,mat_11,mat_12,"
+                "mat_20,mat_21,mat_22\n")
+        for cam_id, cam in data.cameras.items():
+            f.write(f"{cam_id},640,480," + ",".join(str(v) for v in cam.intrinsics.ravel())
+                    + "\n")
+    with open(out / "extrinsics.csv", "w") as f:
+        f.write("camera_id,transl_x,transl_y,transl_z,quat_x,quat_y,quat_z,quat_w\n")
+        for cam_id, cam in data.cameras.items():
+            q = Rotation.from_matrix(cam.extrinsics_r).as_quat()
+            t = cam.extrinsics_t
+            f.write(f"{cam_id},{t[0]},{t[1]},{t[2]},{q[0]},{q[1]},{q[2]},{q[3]}\n")
+    pose_header = "node_id,transl_x,transl_y,transl_z,quat_x,quat_y,quat_z,quat_w\n"
+    with open(out / "poses.csv", "w") as f:
+        f.write(pose_header)
+        for frame, p in sorted(data.initial_poses.items()):
+            f.write(_pose_row(frame, p))
+    with open(out / "gt_poses.csv", "w") as f:
+        f.write(pose_header)
+        for frame in range(len(gt_poses)):
+            f.write(_pose_row(frame, gt_poses[frame]))
+    with open(out / "bounding_boxes.csv", "w") as f:
+        f.write("min_pixel_x,min_pixel_y,max_pixel_x,max_pixel_y,semantic_class,node_id,"
+                "camera_id,detection_confidence\n")
+        for frame, by_cam in sorted(data.bounding_boxes.items()):
+            for cam_id, bbs in by_cam.items():
+                for bb in bbs:
+                    c = bb.corners  # [x_min, x_max, y_min, y_max]
+                    f.write(f"{c[0]},{c[2]},{c[1]},{c[3]},{bb.semantic_class},{frame},"
+                            f"{cam_id},{bb.detection_confidence}\n")
+    orb = out / "orb_out"
+    (orb / "features").mkdir(parents=True, exist_ok=True)
+    for frame in sorted(data.initial_poses):
+        with open(orb / f"{frame:06d}.txt", "w") as f:
+            f.write(f"{frame}\n")
+            f.write("0 0 0 0 0 0 1\n")  # the pose line, which the reader skips
+            feats = data.features_for_frame(frame)
+            for feat_id in sorted(feats):
+                parts = [str(feat_id)]
+                for cam_id, px in sorted(feats[feat_id].items()):
+                    parts += [str(cam_id), str(px[0]), str(px[1])]
+                f.write(" ".join(parts) + "\n")
+    with open(orb / "features" / "features.txt", "w") as f:
+        f.write("feature_id,x,y,z\n")
+        for feat_id, pos in sorted(data.feature_init_positions.items()):
+            f.write(f"{feat_id},{pos[0]},{pos[1]},{pos[2]}\n")
+    return out

@@ -157,13 +157,29 @@ def test_synthetic_session_equals_make_session():
             np.testing.assert_array_equal(ours[k], theirs[k])
 
 
-def test_unported_options_raise():
-    """The multi-device runner and the host-loop two-phase branch raise (PGO
-    on global BA runs: tests/test_torch_pgo.py)."""
+def test_unported_options_raise(capsys):
+    """The multi-device runner raises (PGO on global BA runs:
+    tests/test_torch_pgo.py; the host-loop two-phase branch runs:
+    tests/test_torch_cli.py), and the CLI's flags that need modules not
+    ported yet exit non-zero with a message naming the module."""
+    from obvi_slam_tpu_torch.cli import offline_object_visual_slam_main as main_cli
+
     c = small_config(ot.config)
-    for kw in (dict(mesh=object()), dict(shard_local_ba=True), dict(use_fused_solver=False)):
+    for kw in (dict(mesh=object()), dict(shard_local_ba=True)):
         with pytest.raises(NotImplementedError):
             ot.OfflineProblemRunner(c, device="cpu", **kw)
+    inputs = []
+    for flag in ("--params_config_file", "--intrinsics_file", "--extrinsics_file",
+                 "--poses_by_node_id_file", "--low_level_feats_dir"):
+        inputs += [flag, "unused"]
+    for extra, module in ((["--shard_devices", "2"], "parallel/"),
+                          (["--shard_local_ba"], "parallel/"),
+                          (["--debug_images_output_directory", "dbg"], "visualization.py")):
+        with pytest.raises(SystemExit) as exit_info:
+            main_cli.main(inputs + ["--device", "cpu"] + extra)
+        assert exit_info.value.code != 0
+        err = capsys.readouterr().err
+        assert extra[0] in err and module in err, err
 
 
 def _jax_frontend(runner, config, data):

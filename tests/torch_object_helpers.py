@@ -29,6 +29,7 @@ import dataclasses
 import numpy as np
 
 import obvi_slam_tpu.solver as jsolver
+from obvi_slam_tpu import optlog as joptlog
 from obvi_slam_tpu import config as jcfg
 from obvi_slam_tpu import runner as jrunner
 from obvi_slam_tpu.frontend import FeatureBasedBoundingBoxFrontEnd as JaxBbFrontEnd
@@ -168,7 +169,11 @@ class SolveRecorder:
         runner.build_problem_synced = rec_build
 
     def mini_ba(self, state, cams, tables, plan, free, params, huber):
-        out = lm_fused.solve_fused(state, cams, tables, plan, free, params=params, huber=huber)
+        """The fused solve, with per-iteration records when the optimization
+        logger is on (the JAX frontend's accelerator branch)."""
+        out = lm_fused.solve_fused(
+            state, cams, tables, plan, free, params=params, huber=huber,
+            with_records=joptlog.IterationLoggerFactory.instance().enabled)
         weights = jsolver.schur.ones_weights(tables, dtype=state.poses.dtype)
         self.records.append(
             ("solve", ((state, cams, tables, plan, free, weights, huber), params), out)
