@@ -20,10 +20,13 @@ permuted C, local poses across the whole window, repeated poses, dead slots
 and rows, ragged and empty shapes), twice bit for bit, with the blocks each
 launches and the rows each output tile multiplies. It checks one f32 step
 with the kernels against an f64 step of the plain versions on the three
-synthetic problems, and the f64 band-solve step against the f64 dense step
+synthetic problems, the f64 band-solve step against the f64 dense step
 at 1,024 poses (cyclic reduction) and at 256 poses with the gate forced on
-(the sequential tile loop). Then it drives the main path, four phases, each with the
-launch counts reset just before it:
+(the sequential tile loop), and one f64 step of the 1,024-pose problem
+relabelled out and back (``out_and_back``: a loop closure, solved by pair
+enumeration) against its banded step mapped back through the permutation.
+Then it drives the main path, seven phases, each with the launch counts
+(and the Schur path counts, ``schur.path_counts``) reset just before it:
 
   - ``global``: the two-phase global bundle adjustment of 256 poses x 4096
     points x 32 objects (the reference's bench problem, ``bench.py:95-105``),
@@ -37,6 +40,16 @@ launch counts reset just before it:
     16384 points x 64 objects (the reference's scale tier,
     ``bench.py:401-408``), through K1, K2, K3 and the block-tridiagonal +
     Woodbury band solve (counted by a spy); also a fixed 10-iteration solve;
+  - ``loop_768``: the two-phase global bundle adjustment of 768 poses x
+    16384 points x 64 objects relabelled out and back (the robot drives the
+    line out and back over the same ground, so most points are seen from
+    poses up to 767 apart): the banded layout refuses it, the point slot
+    grid is over budget, so every step builds the dense U from the pairs and
+    its gram, and the object slot gram; K1 and K2, no K3, no band solve;
+  - ``loop_1024``: ``scale_1024``'s problem relabelled out and back: U is
+    over 256M elements, so every step enumerates pairs (one accumulating
+    scatter into S, a 6144^2 Cholesky); K1 and K2; also a fixed
+    10-iteration solve;
 
 each checked against an f64 run of the plain versions (phase 2 with the f32
 run's outlier selection) and against an f64 run that selects its own,
@@ -69,7 +82,10 @@ whose selection may differ in at most 5% of the excluded factors; and
     point's ``main`` seeded from the map, must observe a map object again.
     K2 is then held against its plain version at the session's largest
     two-phase window BA table and a mini-BA table, and K1 at the mini-BA's
-    empty reprojection table.
+    empty reprojection table. The Jacobian debug oracle then reads the
+    session's final checkpoint: ``extract_jacobian`` in f64 through K1/K2
+    against the CPU's plain run, and the ``debug_jacobian_hessian_diagonal``
+    CLI with ``--device cuda`` against ``--device cpu``.
 
 The two f64 plain sessions, and the second object session, run in
 processes of their own on the same card (``chip_smoke.py
@@ -86,7 +102,8 @@ kernels' times, bounds and launch counts (K1 and K2 also with the device
 kernels per wrapper call, which must be 1, and the launch floor: a
 one-element ``torch.add``), each kernel also at the larger phases' shapes,
 a profile of each synthetic phase (with the band solve's share at 1,024
-poses) and of both sessions' last 8 frames (the object session's run on
+poses, the dense U gram's at loop_768, the S scatter's and the Cholesky's
+at loop_1024) and of both sessions' last 8 frames (the object session's run on
 from a copy of its state taken before them), one JSON line describing the
 kernels, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
@@ -123,6 +140,7 @@ from obvi_slam_tpu_torch.cli import offline_object_visual_slam_main as cli_main 
 from obvi_slam_tpu_torch.timing import TimerRegistry  # noqa: E402
 from obvi_slam_tpu_torch.runner import visual_frontend_for  # noqa: E402
 from obvi_slam_tpu_torch.solver import band_solve  # noqa: E402
+from obvi_slam_tpu_torch.solver.plan import build_schur_plan  # noqa: E402
 from obvi_slam_tpu_torch.solver import schur as schur_mod  # noqa: E402
 from obvi_slam_tpu_torch.solver import two_phase as tp_mod  # noqa: E402
 from obvi_slam_tpu_torch.solver import (  # noqa: E402
@@ -138,12 +156,23 @@ WINDOW = dict(n_poses=64, n_points=4096, n_objects=32, obs_per_point=6, obs_per_
 GLOBAL = dict(WINDOW, n_poses=256)
 SCALE = dict(n_poses=1024, n_points=16384, n_objects=64, obs_per_point=6, obs_per_object=12,
              seed=0)
+LOOP_768 = dict(SCALE, n_poses=768)
 # Synthetic phases of the main path and the kernels each must launch.
 PHASES = {
     "global": (GLOBAL, ("reproj", "bbox", "band_gram")),
     "window": (WINDOW, ("reproj", "bbox", "syrk")),
     "scale_1024": (SCALE, ("reproj", "bbox", "band_gram")),
+    "loop_768": (LOOP_768, ("reproj", "bbox")),
+    "loop_1024": (SCALE, ("reproj", "bbox")),
 }
+# Loop-closure phases: their problem relabelled out and back
+# (``out_and_back``), and the Schur paths (``schur.path_counts``) every step
+# of theirs must take: at 768 poses the point slot grid (16384 x 6 x 768) is
+# over budget, so the dense U from the pairs and its gram, the object slot
+# gram; at 1,024 poses U (6144 x 49152) is over 256M elements, so pair
+# enumeration. Neither runs K3 or the band solve.
+LOOP_PATHS = {"loop_768": ("pt_dense_from_pairs", "ob_slot"),
+              "loop_1024": ("pair_enumeration",)}
 # The phase that must take the band solve (the others must not).
 BAND_SOLVE_PHASE = "scale_1024"
 # The runner session: frames, features (enough that the window's point
@@ -337,6 +366,55 @@ def problem(dtype, size=WINDOW):
     return ot.synthetic_problem(**size, dtype=dtype, device=DEVICE)
 
 
+def out_and_back(prob):
+    """The problem relabelled out and back: the robot drives the line out on
+    the old even poses and back over the same ground on the old odd ones
+    (new pose k < P/2 is old pose 2k, k >= P/2 is old 2(P-1-k)+1; pose 0
+    stays the fixed gauge). Each table's pose indices, the poses and the free
+    mask are permuted and the Schur plan is rebuilt by the port's plan
+    builder; the problem is the same. Most landmarks are then seen from both
+    legs, up to P - 1 poses apart: a loop closure, which the banded layout
+    refuses. Returns (problem, old pose of each new pose)."""
+    state0, state_gt, cams, tables, _, free, weights, huber = prob
+    n_pose = state0.poses.shape[0]
+    k = np.arange(n_pose)
+    old_of_new = np.where(k < n_pose // 2, 2 * k, 2 * (n_pose - 1 - k) + 1)
+    device = state0.poses.device
+    new_of_old = torch.from_numpy(np.argsort(old_of_new).astype(np.int32)).to(device)
+    order = torch.from_numpy(old_of_new).to(device)
+
+    def idx(x):
+        return new_of_old[x.long()]
+
+    def poses(s):
+        return s._replace(poses=s.poses[order])
+
+    pp = tables.param_prior
+    tables = tables._replace(
+        reproj=tables.reproj._replace(pose_idx=idx(tables.reproj.pose_idx)),
+        bbox=tables.bbox._replace(pose_idx=idx(tables.bbox.pose_idx)),
+        relpose=tables.relpose._replace(before_idx=idx(tables.relpose.before_idx),
+                                        after_idx=idx(tables.relpose.after_idx)),
+        param_prior=pp._replace(block_idx=torch.where(
+            pp.block_kind == 0, idx(pp.block_idx.clamp(0, n_pose - 1)), pp.block_idx)),
+    )
+    rl = tables.relpose
+    live = rl.mask.cpu().numpy()
+    plan = build_schur_plan(
+        tables, n_pose=n_pose, rl_before=rl.before_idx.cpu().numpy()[live],
+        rl_after=rl.after_idx.cpu().numpy()[live], rl_cap=rl.capacity, device=device,
+    )
+    free = free._replace(poses=free.poses[order])
+    return (poses(state0), poses(state_gt), cams, tables, plan, free, weights, huber), old_of_new
+
+
+def phase_problem(label, dtype):
+    """The synthetic problem of phase ``label``, relabelled out and back for
+    a loop-closure phase."""
+    prob = problem(dtype, PHASES[label][0])
+    return out_and_back(prob)[0] if label in LOOP_PATHS else prob
+
+
 def _ragged(table, n_extra, block):
     """The table plus ``n_extra`` (or one more) masked rows that copy live
     rows (garbage the kernels must not read into the outputs), at a row count
@@ -460,8 +538,8 @@ def check_kernels(np_dtype):
     (saturated rows); two launches equal bit for bit; in f64 also K1 at depth
     0. Returns the max abs error per kernel."""
     errs = {"reproj": 0.0, "bbox": 0.0}
-    for label, (size, _) in PHASES.items():
-        state, _, cams, tables, *_ = problem(np_dtype, size)
+    for label in PHASES:
+        state, _, cams, tables, *_ = phase_problem(label, np_dtype)
         dtype = state.poses.dtype
         notes = []
         for name, table, n_extra in (("reproj", tables.reproj, 300), ("bbox", tables.bbox, 30)):
@@ -704,15 +782,15 @@ def rel(a, b):
 
 
 def check_step(label):
-    size = PHASES[label][0]
     steps = {}
+    schur_mod.reset_path_counts()
     for dtype, plain in ((np.float64, True), (np.float32, False)):
-        state, _, cams, tables, plan, free, weights, huber = problem(dtype, size)
+        state, _, cams, tables, plan, free, weights, huber = phase_problem(label, dtype)
         steps[dtype] = ot.compute_step(
             state, cams, tables, plan, free, weights, 1e4, huber, plain=plain
         )
     torch.cuda.synchronize()
-    banded = plan.pt_band_local_pose is not None
+    paths = dict(schur_mod.path_counts)
     (d64, mc64, _), (d32, mc32, _) = steps[np.float64], steps[np.float32]
     errs = {
         "poses": rel(d32.poses, d64.poses),
@@ -721,7 +799,7 @@ def check_step(label):
         "model_cost_change": abs(float(mc32) - float(mc64)) / abs(float(mc64)),
     }
     print(
-        f"{label} step ({'banded' if banded else 'dense'}) f32 (kernels) vs f64 (plain): "
+        f"{label} step (paths {paths}) f32 (kernels) vs f64 (plain): "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
     )
     for k in ("poses", "points", "model_cost_change"):
@@ -761,6 +839,34 @@ def check_band_vs_dense(label, gate):
     for k, v in errs.items():
         if not v <= 1e-8:
             raise AssertionError(f"{label} band vs dense step {k} relative error {v:.3e} > 1e-8")
+
+
+def check_relabelled_step():
+    """Equal work, relabelled: one f64 plain step on loop_1024 (pair
+    enumeration) against one on scale_1024 (banded layout, band solve),
+    mapped back through the permutation; deltas and model cost change
+    within relative 1e-9."""
+    prob = problem(np.float64, PHASES["loop_1024"][0])
+    loop, old_of_new = out_and_back(prob)
+    schur_mod.reset_path_counts()
+    band = ot.compute_step(*prob[:1], *prob[2:7], 1e4, prob[7], plain=True)
+    band_paths = dict(schur_mod.path_counts)
+    schur_mod.reset_path_counts()
+    pair = ot.compute_step(*loop[:1], *loop[2:7], 1e4, loop[7], plain=True)
+    pair_paths = dict(schur_mod.path_counts)
+    torch.cuda.synchronize()
+    if "band_solve" not in band_paths or "pair_enumeration" not in pair_paths:
+        raise AssertionError(f"relabelled step: paths {band_paths} and {pair_paths}")
+    back = torch.empty_like(pair[0].poses)
+    back[torch.from_numpy(old_of_new).to(back.device)] = pair[0].poses
+    errs = {"poses": rel(back, band[0].poses), "points": rel(pair[0].points, band[0].points),
+            "objects": rel(pair[0].objects, band[0].objects),
+            "model_cost_change": abs(float(pair[1]) - float(band[1])) / abs(float(band[1]))}
+    print("loop_1024 step f64 plain (pair enumeration), mapped back, vs scale_1024 step "
+          "(banded, band solve): " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    for k, v in errs.items():
+        if not v <= 1e-9:
+            raise AssertionError(f"relabelled step {k} relative error {v:.3e} > 1e-9")
 
 
 class Spy:
@@ -843,15 +949,17 @@ def check_result(final, summaries, what):
 def main_path_phase(label):
     """One warm-up solve, then the measured one between a reset and a read
     of the launch counts; then the f64 plain reference."""
-    size, expected = PHASES[label]
-    problem32 = problem(np.float32, size)
+    _, expected = PHASES[label]
+    problem32 = phase_problem(label, np.float32)
     run_two_phase(problem32, plain=False)  # warm-up: allocator, cuBLAS/cuSOLVER handles
 
     torch.cuda.reset_peak_memory_stats()
     with BandSolveSpy() as spy, Spy(tp_mod, "reweight_on_device") as selection:
         ops.reset_kernel_launches()
+        schur_mod.reset_path_counts()
         final, s1, s2, wall = run_two_phase(problem32, plain=False)
         launches = ops.kernel_launches()
+        paths = dict(schur_mod.path_counts)
     peak = torch.cuda.max_memory_allocated()
 
     check_result(final, (s1, s2), f"{label} f32 kernels")
@@ -864,7 +972,14 @@ def main_path_phase(label):
     if (spy.calls > 0) != (label == BAND_SOLVE_PHASE):
         raise AssertionError(f"{label}: {spy.calls} band solves")
     print(f"{label} launches: {launches}; band solves {spy.calls} "
-          f"({spy.calls / iters:.2f} per LM iteration)")
+          f"({spy.calls / iters:.2f} per LM iteration); Schur paths {paths}")
+    if paths.get("steps") != iters:
+        raise AssertionError(f"{label}: {paths.get('steps')} steps counted, {iters} LM iterations")
+    for name in LOOP_PATHS.get(label, ()):
+        if paths.get(name) != iters:
+            raise AssertionError(f"{label}: {paths.get(name, 0)} of {iters} steps took {name}")
+    if label in LOOP_PATHS and (launches["band_gram"] or paths.get("band_solve")):
+        raise AssertionError(f"{label}: K3 launched or band solve taken on a loop closure")
 
     # The reference: both phases in f64 through the plain versions, phase 2
     # with the f32 run's factor selection. Two runs that select their own
@@ -872,7 +987,7 @@ def main_path_phase(label):
     # factors at the 10% boundary, and then solve different phase-2 problems.
     weights2 = schur_mod.FactorWeights(*(w.double() for w in selection.result))
     excluded = int(((problem32[3].reproj.mask) & (weights2.reproj == 0)).sum())
-    final64, r1, r2, wall64 = reference_two_phase(problem(np.float64, size), weights2)
+    final64, r1, r2, wall64 = reference_two_phase(phase_problem(label, np.float64), weights2)
     check_result(final64, (r1, r2), f"{label} f64 plain")
     print(f"{label} f64 plain: {wall64:.4f} s wall; phase 2 with the f32 run's selection "
           f"({excluded} reprojection factors excluded)")
@@ -886,7 +1001,7 @@ def main_path_phase(label):
     # most SELECTION_LIMIT of the factors the f32 run excluded; where the two
     # agree, its phase-2 final cost must lie within 1e-3 as well.
     with Spy(tp_mod, "reweight_on_device") as own:
-        _, _, own2, _ = run_two_phase(problem(np.float64, size), plain=True)
+        _, _, own2, _ = run_two_phase(phase_problem(label, np.float64), plain=True)
     changed = sum(int((a != b).sum()) for a, b in zip(own.result, weights2))
     own_gap = abs(s2.final_cost - own2.final_cost) / own2.final_cost
     print(f"{label} f64 plain with its own selection: {changed} factor weights differ from "
@@ -900,14 +1015,14 @@ def main_path_phase(label):
         raise AssertionError(f"{label}: same selection, phase 2 final cost gap {own_gap:.3e} "
                              "> 1e-3")
     return dict(launches=launches, iters=iters, wall=wall, band_solves=spy.calls,
-                band_operands=spy.operands)
+                band_operands=spy.operands, paths=paths, peak=peak)
 
 
 def fixed_iterations(label, n_iters=20, runs=3):
     """LM iterations/s over fixed-length solves (tolerances at 0), so that
     the rate does not ride on the run-to-run iteration count; the median of
     ``runs`` solves, each from the same start."""
-    state, _, cams, tables, plan, free, weights, huber = problem(np.float32, PHASES[label][0])
+    state, _, cams, tables, plan, free, weights, huber = phase_problem(label, np.float32)
     params = LMParams(
         max_num_iterations=n_iters, function_tolerance=0.0, gradient_tolerance=0.0,
         parameter_tolerance=0.0,
@@ -1487,6 +1602,61 @@ def objects_phase(tmp, exported):
                 ltm_objects=sorted(loaded.ellipsoids))
 
 
+def oracle_phase(tmp, exported):
+    """The Jacobian debug oracle on the object session's final pose-graph
+    checkpoint: ``extract_jacobian`` in f64 on the card (K1 and K2, one
+    launch each) against the CPU's plain run (the same rows and columns,
+    values within the f64 tolerance of ``_compare``); then the CLI with
+    ``--device cuda`` against ``--device cpu``: the same printed counts."""
+    import contextlib
+    import io as _io
+
+    from obvi_slam_tpu_torch.cli import debug_jacobian_hessian_diagonal as debug_cli
+    from obvi_slam_tpu_torch.solver import jacobian_debug as jd
+
+    directory = Path(exported[0])
+    ckpt = Path(tmp) / "objects_out" / "checkpoints" / f"{CHECKPOINTS[-1]}.json"
+    files = (str(ckpt), str(directory / "config.json"), str(directory / "intrinsics.csv"),
+             str(directory / "extrinsics.csv"))
+    runs = []  # (info, launches, seconds) on the card, then on the CPU
+    for device in (DEVICE, "cpu"):
+        prob = debug_cli.load_problem(*files, device=device)
+        ops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        info = jd.extract_jacobian(prob.state, prob.cams, prob.tables, prob.huber)
+        runs.append((info, ops.kernel_launches(), time.perf_counter() - t0))
+    (card, card_launches, card_s), (cpu, cpu_launches, cpu_s) = runs
+    if card_launches["reproj"] != 1 or card_launches["bbox"] != 1 or any(
+            cpu_launches.values()):
+        raise AssertionError(f"oracle: kernel launches {card_launches}, CPU {cpu_launches}")
+    if not (np.array_equal(card.rows, cpu.rows) and np.array_equal(card.cols, cpu.cols)
+            and card.row_owner == cpu.row_owner and (card.n_rows, card.n_cols) == (
+                cpu.n_rows, cpu.n_cols)):
+        raise AssertionError("oracle: the card's triplets sit elsewhere than the CPU's")
+    families = sorted({name for name, _ in card.row_owner})
+    err = _compare("oracle Jacobian", (torch.from_numpy(card.vals),),
+                   (torch.from_numpy(cpu.vals),), torch.float64)
+    print(f"oracle extract_jacobian f64 on the {ckpt.stem} checkpoint: {card.n_rows} rows x "
+          f"{card.n_cols} columns, {len(card.vals)} non-zeros ({', '.join(families)}); card "
+          f"(K1/K2, {card_s:.4f} s) vs CPU plain ({cpu_s:.4f} s): max "
+          f"abs err {err:.3e} - ok")
+    printed = []
+    for device in (DEVICE, "cpu"):
+        out = _io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = debug_cli.main(["--input_checkpoint_file", files[0], "--params_config_file",
+                                 files[1], "--intrinsics_file", files[2],
+                                 "--extrinsics_file", files[3], "--device", device])
+        if rc != 0:
+            raise AssertionError(f"oracle CLI --device {device}: exit {rc}")
+        printed.append([x for x in out.getvalue().splitlines()
+                        if not x.startswith("Hessian diag")])
+    if printed[0] != printed[1] or len(printed[1]) < 3:
+        raise AssertionError(f"oracle CLI counts differ: {printed}")
+    print(f"oracle CLI --device {DEVICE}, the same counts as --device cpu: "
+          + "; ".join(printed[1][:3]))
+
+
 def check_object_outputs(out, pg, run, ate):
     """Every artifact of ``write_outputs`` in ``out``, read back through
     the port's readers: the trajectory's ATE (``metrics``) equal to the
@@ -1871,12 +2041,29 @@ def profile_phase(label, phase):
     busy time per LM iteration against the wall time per LM iteration of the
     unprofiled main-path run (the two runs' iteration counts differ: f32
     sums on the card change order from run to run), and the top device ops;
-    at scale_1024 also the band solve's share of the device time."""
+    at scale_1024 also the band solve's share of the device time; at
+    loop_768 the share of the dense U's gram U U^T, at loop_1024 those of the
+    pair path's S scatter and of S's Cholesky (each timed alone on the
+    operands of the profiled solve's last step)."""
     from torch.profiler import ProfilerActivity, profile
 
-    problem32 = problem(np.float32, PHASES[label][0])
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, s1, s2, prof_wall = run_two_phase(problem32, plain=False)
+    problem32 = phase_problem(label, np.float32)
+    largest = []  # the widest dense U of the solve (a loop-closure point gram)
+    inner = schur_mod._dense_from_pairs
+
+    def dense_spy(*args, **kw):
+        u = inner(*args, **kw)
+        if not largest or u.numel() > largest[0].numel():
+            largest[:] = [u]
+        return u
+
+    schur_mod._dense_from_pairs = dense_spy
+    try:
+        with Spy(schur_mod, "_scatter_blocks") as scatter, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, s1, s2, prof_wall = run_two_phase(problem32, plain=False)
+    finally:
+        schur_mod._dense_from_pairs = inner
     iters = s1.num_iterations + s2.num_iterations
     busy_ms = profile_summary(label, prof, prof_wall, iters, "LM iteration")
     if busy_ms <= 0:
@@ -1899,6 +2086,23 @@ def profile_phase(label, phase):
             f"{per_iter:.2f} calls per LM iteration: {band_ms * per_iter / (busy_ms / iters):.4f} "
             f"of the device time per LM iteration"
         )
+    # Timed with CUDA events over back-to-back calls: a profiler window over
+    # a few calls of tens of ms can lose kernel records.
+    shares = {}
+    if label == "loop_768" and largest:
+        u = largest[0]
+        shares[f"dense U gram ({u.shape[0]} x {u.shape[1]}, U U^T)"] = time_ms(
+            lambda: u @ u.T, inner=3, reps=5)
+    if scatter.calls:
+        s_full = scatter.result
+        shares[f"S scatter ({scatter.operands[3].shape[0]} blocks onto {s_full.shape[0]}^2, "
+               "index_put_ accumulate + symmetrize)"] = time_ms(
+            lambda: schur_mod._scatter_blocks(*scatter.operands), inner=3, reps=5)
+        shares[f"Cholesky of S ({s_full.shape[0]}^2, cholesky_ex)"] = time_ms(
+            lambda: torch.linalg.cholesky_ex(s_full), inner=3, reps=5)
+    for what, ms in shares.items():
+        print(f"profile {label}: {what} {ms:.3f} ms per call (CUDA events), one call per LM "
+              f"iteration: {ms / (busy_ms / iters):.4f} of the device time per LM iteration")
 
 
 def check_session_gram(c):
@@ -2094,10 +2298,12 @@ def main():
             check_step(label)
         for label, gate in BAND_CHECKS:
             check_band_vs_dense(label, gate)
+        check_relabelled_step()
         print(f"[{time.perf_counter() - t_start:.1f} s] checks done")
         phases = {label: main_path_phase(label) for label in PHASES}
         fixed_iterations("global")
         fixed_iterations("scale_1024", n_iters=10)
+        fixed_iterations("loop_1024", n_iters=10)
         print(f"[{time.perf_counter() - t_start:.1f} s] synthetic phases done")
         session = session_phase()
         errs["syrk"] = max(errs["syrk"], check_session_gram(session["syrk_operand"]))
@@ -2108,6 +2314,7 @@ def main():
             "second", str(exported["second"][0]), objects["ltm_path"],
             str(Path(tmp.name) / "second_out"))
         print(f"[{time.perf_counter() - t_start:.1f} s] objects phase done")
+        oracle_phase(tmp.name, exported["objects"])
         bbox_err, reproj_err = check_object_tables(
             objects["window"], objects["mini"], objects["mini_reproj"])
         errs["bbox"] = max(errs["bbox"], bbox_err)

@@ -6,17 +6,21 @@ Layout (each module keeps the name of its counterpart in ``obvi_slam_tpu``):
   - ``types``, ``geometry``      tables, state and SO(3)/dual-quadric math;
   - ``factors``                  the five residual families; the plain
                                  versions of kernels K1 (reprojection) and K2
-                                 (bounding box);
+                                 (bounding box); the standalone epipolar
+                                 factor;
   - ``ops``                      K1-K4 in CUDA C++ (``ops/csrc``), built
                                  with nvcc on first use, with launch counters;
                                  K3 (banded gram) and K4 (syrk gram) hold their
                                  plain versions beside their wrappers;
   - ``solver``                   the host Schur plan with the band layouts,
-                                 ``compute_step`` on the dense and banded
-                                 slot-gram paths, the block-tridiagonal +
+                                 ``compute_step`` with the reference's path
+                                 choice (dense and banded slot grams, the
+                                 dense U from the pairs, pair enumeration;
+                                 ``path_counts``), the block-tridiagonal +
                                  Woodbury band solve (``band_solve``), LM, the
-                                 two-phase solve, and the window problem
-                                 builder (``problem``);
+                                 two-phase solve, the window problem builder
+                                 (``problem``) and the Jacobian debug oracle
+                                 (``jacobian_debug``);
   - ``config``, ``pose_graph``,  the session: the reference's JSON config,
     ``offline_data``, ``timing``, the host pose graph, the input bundle, the
     ``frontend``, ``runner``,    phase timers, the visual-feature and
@@ -36,6 +40,7 @@ numpy only.
 
 from obvi_slam_tpu_torch import config, factors, geometry, ops, solver, types  # noqa: F401
 from obvi_slam_tpu_torch.ops import kernel_launches, reset_kernel_launches  # noqa: F401
+from obvi_slam_tpu_torch.solver.schur import path_counts, reset_path_counts  # noqa: F401
 from obvi_slam_tpu_torch.pose_graph import PoseGraph  # noqa: F401
 from obvi_slam_tpu_torch.runner import OfflineProblemRunner  # noqa: F401
 from obvi_slam_tpu_torch.solver import (  # noqa: F401

@@ -8,6 +8,8 @@
   - ``sequence_executor``                sessions chained through the LTM;
   - ``run_opt_from_pg_state``            resume a session from a checkpoint;
   - ``ltm_extraction_only``              the LTM from a checkpoint;
+  - ``debug_jacobian_hessian_diagonal``  the Jacobian and Hessian-diagonal
+                                         report of a checkpoint;
   - ``trajectory_metrics_generator``,    ATE/RPE and object-map metrics of
     ``object_metrics_generator``         a session's results;
   - ``write_configuration``              the default config as JSON.

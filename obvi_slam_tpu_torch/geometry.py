@@ -171,6 +171,23 @@ def pose_inverse(pose):
     return pose_from_rt(*pose_inverse_rt(pose))
 
 
+def essential_matrix(pose1, pose2, cam1_r, cam1_t, cam2_r, cam2_t):
+    """Essential matrix relating rectified pixels of the camera at pose1 and
+    pose2 (``CalcEssentialMatrix``, vslam_math_util.h:174):
+    T_c1_c2 = (T_r_c1)^-1 T_w_r1^-1 T_w_r2 T_r_c2; E = [t]_x R. ``cam*_r/t``
+    are the extrinsics (camera in robot frame)."""
+    r1, t1 = pose_to_rt(pose1)
+    r2, t2 = pose_to_rt(pose2)
+    c1ri = cam1_r.transpose(-1, -2)
+    c1ti = -bmv(c1ri, cam1_t)
+    r1i = r1.transpose(-1, -2)
+    t1i = -bmv(r1i, t1)
+    ra, ta = compose_rt(c1ri, c1ti, r1i, t1i)
+    rb, tb = compose_rt(ra, ta, r2, t2)
+    rc, tc = compose_rt(rb, tb, cam2_r, cam2_t)
+    return bmm(skew(tc), rc)
+
+
 def project_point_rectified(pose, point, cam_from_robot_r, cam_from_robot_t):
     """World point -> rectified pixel (x/z, y/z) and camera depth."""
     r_wr_inv, t_wr_inv = pose_inverse_rt(pose)

@@ -59,9 +59,11 @@ def solve(
     params: LMParams = LMParams(),
     huber: schur_mod.HuberParams = schur_mod.HuberParams(),
     plain: bool = False,
+    dense_schur=None,
 ):
     """Run LM from ``state``; returns (final_state, LMSummary) with one
-    IterationRecord per iteration. ``plain`` is passed to compute_step."""
+    IterationRecord per iteration. ``plain`` and ``dense_schur`` (None:
+    the automatic path choice) are passed to compute_step."""
     if weights is None:
         weights = schur_mod.ones_weights(tables, dtype=state.poses.dtype)
     cost = float(_cost(state, cams, tables, weights, huber))
@@ -79,7 +81,8 @@ def solve(
     free_cols = [m[:, None] for m in free]
     while term == 0 and summary.num_iterations < params.max_num_iterations:
         delta, model_change, grad_max = schur_mod.compute_step(
-            state, cams, tables, plan, free, weights, radius, huber, plain=plain
+            state, cams, tables, plan, free, weights, radius, huber, dense_schur=dense_schur,
+            plain=plain,
         )
         new_state = BAState(*(x + d * m for x, d, m in zip(state, delta, free_cols)))
         new_cost = _cost(new_state, cams, tables, weights, huber)
@@ -156,14 +159,15 @@ def solve_two_phase(
     state, cams, tables, plan, free, weights, aux: tp_mod.TwoPhaseAux,
     params1: LMParams, params2: LMParams,
     huber: schur_mod.HuberParams, tp_cfg: tp_mod.TwoPhaseConfig,
-    plain: bool = False,
+    plain: bool = False, dense_schur=None,
 ):
     """One window iteration of the reference's two-phase optimization:
     phase-1 LM, outlier ranking + factor re-selection at the phase-1
     optimum, then phase-2 LM restarted from the input state. Returns
-    (final_state, summary1, summary2)."""
+    (final_state, summary1, summary2). ``dense_schur`` as in ``solve``."""
     final1, summary1 = solve(
-        state, cams, tables, plan, free, weights, params1, huber, plain=plain
+        state, cams, tables, plan, free, weights, params1, huber, plain=plain,
+        dense_schur=dense_schur,
     )
     res = fac.all_residuals(final1, cams, tables, huber.invalid_ellipse_error)
     weights2 = tp_mod.reweight_on_device(
@@ -171,6 +175,7 @@ def solve_two_phase(
         n_pose=state.poses.shape[0], n_point=state.points.shape[0],
     )
     final2, summary2 = solve(
-        state, cams, tables, plan, free, weights2, params2, huber, plain=plain
+        state, cams, tables, plan, free, weights2, params2, huber, plain=plain,
+        dense_schur=dense_schur,
     )
     return final2, summary1, summary2

@@ -1,24 +1,33 @@
-"""One damped Gauss-Newton (LM) step by Schur complement, slot-gram paths.
+"""One damped Gauss-Newton (LM) step by Schur complement.
 
-Counterpart of ``obvi_slam_tpu/solver/schur.py::compute_step`` with
-``dense_schur=True``: points (3-D) and objects (7-dof ellipsoids) are
-eliminated through batched small-block inverses, and the reduced pose
-system S (6P x 6P) is assembled from grams and solved densely:
+Counterpart of ``obvi_slam_tpu/solver/schur.py::compute_step``: points
+(3-D) and objects (7-dof ellipsoids) are eliminated through batched
+small-block inverses, and the reduced pose system S (6P x 6P) is assembled
+and solved densely:
 
   residuals + J (kernels K1, K2) -> Huber row weights -> H/b block sums
   -> LM damping -> 3x3 / 7x7 SPD inverse and factor G (H^-1 = G G^T)
-  -> W pair blocks -> slot grams (W G)(W G)^T for points and objects
-  -> S = relpose/diagonal blocks - grams -> Cholesky + one refinement step
-  -> back-substitution -> model cost change.
+  -> W pair blocks -> Schur subtraction -> S -> Cholesky + one refinement
+  step -> back-substitution -> model cost change.
 
-Two layouts, as in the reference:
-  - dense (pose-major S): the point gram is one (3L, 6P) gram, through
-    kernel K4 where the reference's syrk gate holds; the relpose and
-    damped-diagonal blocks enter as the gram V_rel V_rel^T.
-  - banded (the plan carries ``pt_band_local_pose``, from 192 poses): the
-    point gram is G group grams over 128-pose local windows (kernel K3),
-    folded onto a component-major S; the object gram is c-major too, and
-    the relpose and diagonal blocks are scattered on directly.
+``choose_paths`` picks how S is built, as the reference does for
+``dense_schur=None`` (its ``schur.py:1543-1613``):
+  - slot grams (``dense_schur``): the Schur subtraction is the gram of
+    (W G) placed on the plan's per-landmark slot grid. Dense layout
+    (pose-major S): the point gram is one (3L, 6P) gram, through kernel K4
+    where the reference's syrk gate holds; the relpose and damped-diagonal
+    blocks enter as the gram V_rel V_rel^T. Banded layout (the plan carries
+    ``pt_band_local_pose``, from 192 poses): the point gram is G group grams
+    over 128-pose local windows (kernel K3), folded onto a component-major
+    S; the object gram is c-major too, and the relpose and diagonal blocks
+    are scattered on directly.
+  - dense-from-pairs: a slot grid over ``_SLOT_BUDGET`` elements (a
+    landmark seen from poses far apart: loop closures) is replaced by the
+    dense (6P, 3M) / (6P, 7K) U built by scatter, and its gram U U^T.
+  - pair enumeration (U over ``_DENSE_U_LIMIT`` elements): every cross
+    block -W_a H^-1 W_b^T, summed by destination, the relpose blocks and the
+    damped diagonal land in one accumulating scatter into S, which is then
+    symmetrized.
 
 From 512 poses (``_use_band_solve``) a banded problem is not assembled into
 S at all: the group grams' 64-pose quadrants and the relpose and diagonal
@@ -27,8 +36,7 @@ term, and ``band_solve.woodbury_band_solve`` solves S = B - Z^T Z.
 
 Other grams are plain float32/float64 matmuls; on the card TF32 must stay
 off (``torch.backends.cuda.matmul.allow_tf32 = False``), which the caller
-sets. Paths this port does not have yet (the pair-enumeration path, a slot
-grid over budget) raise ``NotImplementedError``.
+sets. ``path_counts`` counts the paths each step took.
 """
 
 from __future__ import annotations
@@ -86,8 +94,11 @@ class HuberParams(NamedTuple):
 _MIN_DIAG = 1e-6
 _MAX_DIAG = 1e32
 # Largest one-hot slot grid (elements) the reference builds before it falls
-# back to its pair-scatter path.
+# back to the dense U built from the pairs (schur.py:1557; tests patch it).
 _SLOT_BUDGET = 48 * 1024 * 1024
+# Largest dense U (elements) of the automatic choice; above it the step
+# enumerates pairs (schur.py:1580).
+_DENSE_U_LIMIT = 256 * 1024 * 1024
 # Block-tridiagonal + Woodbury reduced solve: "auto" takes it from
 # _BAND_SOLVE_MIN_POSES poses where the banded layout allows it (see
 # compute_step); "on" / "off" force it (tests set these with monkeypatch).
@@ -101,6 +112,76 @@ def _use_band_solve(n_pose) -> bool:
     if _BAND_SOLVE == "on":
         return True
     return n_pose is not None and n_pose >= _BAND_SOLVE_MIN_POSES
+
+
+class SchurPaths(NamedTuple):
+    """How one step builds and solves S (``choose_paths``)."""
+
+    dense: bool  # slot grams / dense-from-pairs; False: pair enumeration
+    pt_band: bool  # the plan's banded point layout covers the poses
+    pt_slot: bool  # the point slot grid is within budget
+    ob_slot: bool  # the object slot grid is within budget
+    cp_order: bool  # S in (component, pose)-major order
+    band_solve: bool  # block-tridiagonal + Woodbury solve
+
+    def labels(self):
+        """The names ``path_counts`` counts this step under."""
+        if not self.dense:
+            return ("pair_enumeration",)
+        pt = "pt_band_slot" if self.pt_band and self.pt_slot else (
+            "pt_slot" if self.pt_slot else "pt_dense_from_pairs")
+        ob = "ob_slot" if self.ob_slot else "ob_dense_from_pairs"
+        return (pt, ob) + (("band_solve",) if self.band_solve else ())
+
+
+def choose_paths(plan, n_pose, n_point, dense_schur=None) -> SchurPaths:
+    """The reference's path choice (schur.py:1543-1613) from the plan's
+    array shapes, the pose count and the point count. ``dense_schur`` None
+    is automatic: slot grams or dense-from-pairs while the dense U (or, on
+    the banded layout, the group z) stays within ``_DENSE_U_LIMIT``
+    elements, pair enumeration above it.
+
+    Unlike the reference, S is (component, pose)-major only on the slot-gram
+    path: pair enumeration assembles a pose-major S whatever the layout."""
+    band_local = plan.pt_band_local_pose
+    pt_band = band_local is not None and n_pose <= BAND_TP * (band_local.shape[0] + 1)
+    pt_onehot_width = 2 * BAND_TP if pt_band else n_pose
+    pt_lc = plan.pt_slot_gather.shape
+    ob_lc = plan.ob_slot_gather.shape
+    pt_slot = pt_lc[0] * pt_lc[1] * pt_onehot_width <= _SLOT_BUDGET
+    ob_slot = ob_lc[0] * ob_lc[1] * n_pose <= _SLOT_BUDGET
+    if dense_schur is None:
+        if pt_band and pt_slot:
+            lp = band_local.shape
+            u_elems = lp[0] * lp[1] * 3 * 6 * 2 * BAND_TP
+        else:
+            u_elems = (n_pose * 6) * (n_point * 3)
+        dense_schur = u_elems <= _DENSE_U_LIMIT
+    dense_schur = bool(dense_schur)
+    cp_order = dense_schur and pt_band and pt_slot
+    band_solve_on = (
+        cp_order
+        and ob_slot
+        and _use_band_solve(n_pose)
+        and n_pose % BAND_TP == 0
+        and plan.rel_band_local_pose is not None
+        and ob_lc[0] * 7 <= 3 * n_pose
+    )
+    return SchurPaths(dense_schur, pt_band, pt_slot, ob_slot, cp_order, band_solve_on)
+
+
+# Steps per path since the last reset_path_counts(): "steps", and each of
+# SchurPaths.labels().
+path_counts: dict = {}
+
+
+def reset_path_counts() -> None:
+    path_counts.clear()
+
+
+def _count_paths(paths: SchurPaths) -> None:
+    for name in ("steps",) + paths.labels():
+        path_counts[name] = path_counts.get(name, 0) + 1
 
 
 def _outer_rr(a, b):
@@ -259,17 +340,72 @@ def _band_tiles(quads, rows_blk, cols_blk, vals):
     return d[:nb].reshape(nb, m, m), e[: nb - 1].reshape(nb - 1, m, m)
 
 
-def _dense_from_pairs(row_blk, col_blk, live, blocks, n_pose, n_col):
-    """Dense (6P, 6 n_col) block matrix with block (row_blk[k], col_blk[k])
-    = blocks[k]; dead rows land on a spare block row that is dropped."""
-    k = blocks.shape[0]
+def _dense_from_pairs(row_blk, col_blk, live, blocks, n_pose, n_col, cp_order=False):
+    """Dense (6P, bw n_col) block matrix with block (row_blk[k], col_blk[k])
+    = blocks[k] (K, 6, bw); rows (pose, component), or (component, pose)
+    with ``cp_order``. Live (row, column) blocks are unique; dead rows land
+    on a spare row block that is dropped."""
+    k, bh, bw = blocks.shape
     device = blocks.device
-    ar = torch.arange(6, device=device)
-    rows = torch.where(live, row_blk.long(), n_pose)[:, None] * 6 + ar
-    cols = col_blk.long()[:, None] * 6 + ar
-    out = blocks.new_zeros(((n_pose + 1) * 6, n_col * 6))
-    out[rows[:, :, None].expand(k, 6, 6), cols[:, None, :].expand(k, 6, 6)] = blocks
-    return out[: n_pose * 6]
+    safe = torch.where(live, row_blk.long(), n_pose)
+    if cp_order:
+        rows = torch.arange(bh, device=device) * (n_pose + 1) + safe[:, None]
+    else:
+        rows = safe[:, None] * bh + torch.arange(bh, device=device)
+    cols = col_blk.long()[:, None] * bw + torch.arange(bw, device=device)
+    out = blocks.new_zeros(((n_pose + 1) * bh, n_col * bw))
+    out[rows[:, :, None].expand(k, bh, bw), cols[:, None, :].expand(k, bh, bw)] = blocks
+    if cp_order:
+        return out.reshape(bh, n_pose + 1, n_col * bw)[:, :n_pose].reshape(bh * n_pose, -1)
+    return out[: n_pose * bh]
+
+
+def _cross_blocks(w, pair_land, cross_a, cross_b, cross_mask, cross_dest, dest_mask,
+                  h_inv=None):
+    """Schur cross blocks -W_a H^-1 W_b^T of every ordered pair-row pair
+    that shares a landmark, summed by destination block of S: (Nd, 6, 6).
+    Without ``h_inv``, ``w`` holds the scaled pair blocks W G (H^-1 = G G^T)
+    and the blocks are -(W_a G)(W_b G)^T."""
+    cross_a, cross_b = cross_a.long(), cross_b.long()
+    w_a = w[cross_a]
+    if h_inv is not None:
+        w_a = geo.bmm(w_a, h_inv[pair_land.long()[cross_a]])
+    cross = -geo.bmm(w_a, w[cross_b].transpose(1, 2))
+    cross = cross * cross_mask[:, None, None].to(w.dtype)
+    dest = _segment_sum(cross, cross_dest, dest_mask.shape[0])
+    return dest * dest_mask[:, None, None].to(w.dtype)
+
+
+def _pair_enumeration_s(n_pose, diag_blocks, rl, rl_cross, plan, w_scaled, w_ob_scaled):
+    """Pose-major S (6P, 6P) by pair enumeration (schur.py:1837-1879): the
+    masked damped diagonal, each relpose factor's cross blocks at (before,
+    after) and their transposes, and the point and object cross blocks from
+    the scaled pair blocks W G in one accumulating scatter, then
+    0.5 (S + S^T) (schur.py:2043-2044). Dead relpose and destination rows
+    carry index 0 and zero blocks."""
+    p_rng = torch.arange(n_pose, device=diag_blocks.device)
+    bidx, aidx = rl.before_idx.long(), rl.after_idx.long()
+    dest_pt = _cross_blocks(w_scaled, plan.pt_pair_point, plan.pt_cross_a, plan.pt_cross_b,
+                            plan.pt_cross_mask, plan.pt_cross_dest, plan.pt_dest_mask)
+    dest_ob = _cross_blocks(w_ob_scaled, plan.ob_pair_obj, plan.ob_cross_a, plan.ob_cross_b,
+                            plan.ob_cross_mask, plan.ob_cross_dest, plan.ob_dest_mask)
+    idx_a = torch.cat([p_rng, bidx, aidx, plan.pt_dest_a.long(), plan.ob_dest_a.long()])
+    idx_b = torch.cat([p_rng, aidx, bidx, plan.pt_dest_b.long(), plan.ob_dest_b.long()])
+    vals = torch.cat([diag_blocks, rl_cross, rl_cross.transpose(1, 2), dest_pt, dest_ob])
+    return _scatter_blocks(n_pose, idx_a, idx_b, vals)
+
+
+def _scatter_blocks(n_pose, idx_a, idx_b, vals):
+    """0.5 (S + S^T) of the pose-major S (6P, 6P) that sums each 6x6 block
+    vals[k] onto block (idx_a[k], idx_b[k]) (duplicates add up)."""
+    ci = torch.arange(6, device=vals.device)
+    s4 = vals.new_zeros((n_pose, 6, n_pose, 6))
+    s4.index_put_(
+        (idx_a[:, None, None], ci[None, :, None], idx_b[:, None, None], ci[None, None, :]),
+        vals, accumulate=True,
+    )
+    s = s4.reshape(6 * n_pose, 6 * n_pose)
+    return 0.5 * (s + s.T)
 
 
 def compute_step(
@@ -281,47 +417,26 @@ def compute_step(
     weights: FactorWeights,
     radius,
     huber: HuberParams = HuberParams(),
-    dense_schur: bool = True,
+    dense_schur=None,
     plain: bool = False,
 ):
     """One LM step: returns (delta: BAState, model_cost_change, grad_max),
     the last two as 0-dim tensors.
 
     The trust-region radius enters as Ceres' damping
-    H + diag(clamp(diag(H))) / radius. ``plain`` evaluates K1-K4 with their
-    plain PyTorch versions on any device (reference runs); otherwise the
-    wrappers launch the CUDA kernels for CUDA tensors."""
-    if not dense_schur:
-        raise NotImplementedError("the pair-enumeration Schur path is not ported")
+    H + diag(clamp(diag(H))) / radius. ``dense_schur`` None chooses the
+    path (``choose_paths``); True forces the slot-gram / dense-from-pairs
+    path, False pair enumeration. ``plain`` evaluates K1-K4 with their plain
+    PyTorch versions on any device (reference runs); otherwise the wrappers
+    launch the CUDA kernels for CUDA tensors."""
     dtype = state.poses.dtype
     n_pose = state.poses.shape[0]
     n_point = state.points.shape[0]
     n_obj = state.objects.shape[0]
-    # The banded point gram applies when the plan's groups cover the poses;
-    # its one-hot then spans the 128-pose local window, not n_pose.
+    paths = choose_paths(plan, n_pose, n_point, dense_schur)
+    _count_paths(paths)
     band_local = plan.pt_band_local_pose
-    pt_band = band_local is not None and n_pose <= BAND_TP * (band_local.shape[0] + 1)
-    pt_width = 2 * BAND_TP if pt_band else n_pose
-    for kind, slot_gather, width in (
-        ("point", plan.pt_slot_gather, pt_width), ("object", plan.ob_slot_gather, n_pose)
-    ):
-        if slot_gather.shape[0] * slot_gather.shape[1] * width > _SLOT_BUDGET:
-            raise NotImplementedError(
-                f"{kind} slot grid over budget: the scatter fallback is not ported"
-            )
-    # Under banding the reduced system is assembled and solved in
-    # (component, pose)-major order, the group grams' own layout.
-    cp_order = pt_band
-    # Block-tridiagonal + Woodbury solve: banded points, 64-pose tiles, the
-    # relpose band (every live relpose pair within one tile of its partner),
-    # and an object term of low rank.
-    band_solve_on = (
-        cp_order
-        and _use_band_solve(n_pose)
-        and n_pose % BAND_TP == 0
-        and plan.rel_band_local_pose is not None
-        and plan.ob_slot_gather.shape[0] * 7 <= 3 * n_pose
-    )
+    pt_band, cp_order, band_solve_on = paths.pt_band, paths.cp_order, paths.band_solve
 
     pose_free = free.poses.to(dtype)
     point_free = free.points.to(dtype)
@@ -460,80 +575,119 @@ def compute_step(
     pose_active = (_diag(h_pp).abs().sum(-1) > 1e-12) & free.poses
     act = pose_active.to(dtype)
     p_rng = torch.arange(n_pose, device=h_pp.device)
+    # The scaled pair blocks W G (H^-1 = G G^T) enter S and, on the paths
+    # without a slot tensor, the reduced RHS: the same rounded products on
+    # both sides keep an f32 step as close to the f64 one as the slot path's.
     w_scaled = geo.bmm(w_pt, g_ll[plan.pt_pair_point.long()])  # (Np, 6, 3)
-    if pt_band:
-        s_sub_pt, z_pt = _band_slot_gram(
-            w_scaled, plan.pt_slot_gather, plan.pt_slot_mask, band_local, n_pose, plain,
-            emit_tiles=band_solve_on,
-        )
-    else:
-        s_sub_pt, z_pt = _slot_gram(
-            w_scaled, plan.pt_slot_gather, plan.pt_slot_pose, plan.pt_slot_mask, n_pose,
-            plain=plain,
-        )
     w_ob_scaled = geo.bmm(w_ob, g_oo[plan.ob_pair_obj.long()])  # (No, 6, 7)
-    s_sub_ob, z_ob = _slot_gram(
-        w_ob_scaled, plan.ob_slot_gather, plan.ob_slot_pose, plan.ob_slot_mask, n_pose,
-        cp_order=cp_order, plain=plain, skip_gram=band_solve_on,
-    )
-    if cp_order:
-        # c-major: the damped diagonal blocks and each relpose factor's cross
-        # blocks J_b^T J_a at (before, after) and their transposes are added
-        # onto -(grams) directly. Dead relpose rows carry zero Jacobians, so
-        # their clamped indices add exact zeros.
+    z_pt = z_ob = None
+    if not paths.dense:
         diag_blocks = act[:, None, None] * h_pp_d + (1.0 - act)[:, None, None] * eye6
-        rl_cross = _outer_rr(j_rl_b, j_rl_a)  # (R, 6, 6)
-        bidx = rl.before_idx.long().clamp(0, n_pose - 1)
-        aidx = rl.after_idx.long().clamp(0, n_pose - 1)
-        rows_blk = torch.cat([p_rng, bidx, aidx])
-        cols_blk = torch.cat([p_rng, aidx, bidx])
-        vals = torch.cat([diag_blocks, rl_cross, rl_cross.transpose(1, 2)])
-        if band_solve_on:
-            d_tiles, e_tiles = _band_tiles(s_sub_pt, rows_blk, cols_blk, vals)
+        s = _pair_enumeration_s(
+            n_pose, diag_blocks, rl, _outer_rr(j_rl_b, j_rl_a), plan, w_scaled, w_ob_scaled
+        )
+    else:
+        if not paths.pt_slot:
+            u = _dense_from_pairs(
+                plan.pt_pair_pose, plan.pt_pair_point, plan.pt_pair_mask, w_scaled, n_pose,
+                n_point,
+            )
+            s_sub_pt = u @ u.T
+        elif pt_band:
+            s_sub_pt, z_pt = _band_slot_gram(
+                w_scaled, plan.pt_slot_gather, plan.pt_slot_mask, band_local, n_pose, plain,
+                emit_tiles=band_solve_on,
+            )
         else:
-            ci = torch.arange(6, device=h_pp.device)
-            rr = (ci[None, :, None] * n_pose + rows_blk[:, None, None]).expand(-1, 6, 6)
-            cc = (ci[None, None, :] * n_pose + cols_blk[:, None, None]).expand(-1, 6, 6)
-            s = (-(s_sub_pt + s_sub_ob)).index_put_((rr, cc), vals, accumulate=True)
-    else:
-        # Relpose blocks (diagonal + cross) and the damped pose diagonal,
-        # minus its relpose part, as one gram V_rel V_rel^T: column block k
-        # of V_rel holds J_b^T at row block before_k and J_a^T at after_k;
-        # column block R + p holds the Cholesky factor of pose p's diagonal.
-        diag_blocks = (
-            act[:, None, None] * (h_pp_d - h_pp_rel) + (1.0 - act)[:, None, None] * eye6
-        )
-        l_diag = _cholesky_clamped(diag_blocks)
-        n_rel = j_rl_b.shape[0]
-        k_rng = torch.arange(n_rel, device=h_pp.device)
-        v_rel = _dense_from_pairs(
-            torch.cat([rl.before_idx.long(), rl.after_idx.long(), p_rng]),
-            torch.cat([k_rng, k_rng, n_rel + p_rng]),
-            torch.cat([rl.mask, rl.mask, torch.ones_like(free.poses)]),
-            torch.cat([j_rl_b.transpose(1, 2), j_rl_a.transpose(1, 2), l_diag]),
-            n_pose,
-            n_rel + n_pose,
-        )
-        s = v_rel @ v_rel.T - s_sub_pt - s_sub_ob
+            s_sub_pt, z_pt = _slot_gram(
+                w_scaled, plan.pt_slot_gather, plan.pt_slot_pose, plan.pt_slot_mask, n_pose,
+                plain=plain,
+            )
+        if paths.ob_slot:
+            s_sub_ob, z_ob = _slot_gram(
+                w_ob_scaled, plan.ob_slot_gather, plan.ob_slot_pose, plan.ob_slot_mask, n_pose,
+                cp_order=cp_order, plain=plain, skip_gram=band_solve_on,
+            )
+        else:
+            v_ob = _dense_from_pairs(
+                plan.ob_pair_pose, plan.ob_pair_obj, plan.ob_pair_mask, w_ob_scaled, n_pose,
+                n_obj, cp_order=cp_order,
+            )
+            s_sub_ob = v_ob @ v_ob.T
+        if cp_order:
+            # c-major: the damped diagonal blocks and each relpose factor's cross
+            # blocks J_b^T J_a at (before, after) and their transposes are added
+            # onto -(grams) directly. Dead relpose rows carry zero Jacobians, so
+            # their clamped indices add exact zeros.
+            diag_blocks = act[:, None, None] * h_pp_d + (1.0 - act)[:, None, None] * eye6
+            rl_cross = _outer_rr(j_rl_b, j_rl_a)  # (R, 6, 6)
+            bidx = rl.before_idx.long().clamp(0, n_pose - 1)
+            aidx = rl.after_idx.long().clamp(0, n_pose - 1)
+            rows_blk = torch.cat([p_rng, bidx, aidx])
+            cols_blk = torch.cat([p_rng, aidx, bidx])
+            vals = torch.cat([diag_blocks, rl_cross, rl_cross.transpose(1, 2)])
+            if band_solve_on:
+                d_tiles, e_tiles = _band_tiles(s_sub_pt, rows_blk, cols_blk, vals)
+            else:
+                ci = torch.arange(6, device=h_pp.device)
+                rr = (ci[None, :, None] * n_pose + rows_blk[:, None, None]).expand(-1, 6, 6)
+                cc = (ci[None, None, :] * n_pose + cols_blk[:, None, None]).expand(-1, 6, 6)
+                s = (-(s_sub_pt + s_sub_ob)).index_put_((rr, cc), vals, accumulate=True)
+        else:
+            # Relpose blocks (diagonal + cross) and the damped pose diagonal,
+            # minus its relpose part, as one gram V_rel V_rel^T: column block k
+            # of V_rel holds J_b^T at row block before_k and J_a^T at after_k;
+            # column block R + p holds the Cholesky factor of pose p's diagonal.
+            diag_blocks = (
+                act[:, None, None] * (h_pp_d - h_pp_rel) + (1.0 - act)[:, None, None] * eye6
+            )
+            l_diag = _cholesky_clamped(diag_blocks)
+            n_rel = j_rl_b.shape[0]
+            k_rng = torch.arange(n_rel, device=h_pp.device)
+            v_rel = _dense_from_pairs(
+                torch.cat([rl.before_idx.long(), rl.after_idx.long(), p_rng]),
+                torch.cat([k_rng, k_rng, n_rel + p_rng]),
+                torch.cat([rl.mask, rl.mask, torch.ones_like(free.poses)]),
+                torch.cat([j_rl_b.transpose(1, 2), j_rl_a.transpose(1, 2), l_diag]),
+                n_pose,
+                n_rel + n_pose,
+            )
+            s = v_rel @ v_rel.T - s_sub_pt - s_sub_ob
 
-    # ---- reduced RHS: b_S = b_p - sum W H^-1 b = b_p - z (G^T b) ---------
-    g_ll_slot = g_ll[plan.pt_slot_land.long()]
-    y_pt = (g_ll_slot * b_l[plan.pt_slot_land.long()][:, :, None]).sum(1)
-    g_oo_slot = g_oo[plan.ob_slot_land.long()]
-    y_ob = (g_oo_slot * b_o[plan.ob_slot_land.long()][:, :, None]).sum(1)
-    if pt_band:
-        # Group g's (G, 768) contribution covers poses [64 g, 64 g + 128).
-        n_group, k_rows, w_band = z_pt.shape
-        width = band_gram.WIDTH
-        contrib = torch.bmm(z_pt.transpose(1, 2), y_pt.reshape(n_group, k_rows, 1))
-        contrib = contrib.reshape(n_group, 6, width).transpose(1, 2).reshape(n_group, w_band)
-        flat = contrib.new_zeros(6 * BAND_TP * (n_group + 1))
-        for g in range(n_group):
-            flat[6 * BAND_TP * g: 6 * BAND_TP * g + w_band] += contrib[g]
-        b_s = b_p - flat[: 6 * n_pose].reshape(n_pose, 6)
-        b_s = b_s - (z_ob.T @ y_ob.reshape(-1)).reshape(6, n_pose).T
+    # ---- reduced RHS: b_S = b_p - sum W H^-1 b = b_p - (W G)(G^T b) ----
+    # With a slot tensor z = W G live, one contraction; without it
+    # (dense-from-pairs, pair enumeration), per pair row.
+    def pair_rhs(b_s, wg, g, b, pair_land, pair_pose):
+        g_pair = g[pair_land.long()]
+        y = (g_pair * b[pair_land.long()][:, :, None]).sum(1)  # G^T b
+        return b_s.index_add(0, pair_pose.long(), -geo.bmv(wg, y))
+
+    b_s = b_p
+    if z_pt is None:
+        b_s = pair_rhs(b_s, w_scaled, g_ll, b_l, plan.pt_pair_point, plan.pt_pair_pose)
     else:
-        b_s = b_p - (z_pt.T @ y_pt.reshape(-1) + z_ob.T @ y_ob.reshape(-1)).reshape(n_pose, 6)
+        g_ll_slot = g_ll[plan.pt_slot_land.long()]
+        y_pt = (g_ll_slot * b_l[plan.pt_slot_land.long()][:, :, None]).sum(1)
+        if pt_band:
+            # Group g's (G, 768) contribution covers poses [64 g, 64 g + 128).
+            n_group, k_rows, w_band = z_pt.shape
+            width = band_gram.WIDTH
+            contrib = torch.bmm(z_pt.transpose(1, 2), y_pt.reshape(n_group, k_rows, 1))
+            contrib = contrib.reshape(n_group, 6, width).transpose(1, 2).reshape(
+                n_group, w_band)
+            flat = contrib.new_zeros(6 * BAND_TP * (n_group + 1))
+            for g in range(n_group):
+                flat[6 * BAND_TP * g: 6 * BAND_TP * g + w_band] += contrib[g]
+            b_s = b_s - flat[: 6 * n_pose].reshape(n_pose, 6)
+        else:
+            b_s = b_s - (z_pt.T @ y_pt.reshape(-1)).reshape(n_pose, 6)
+    if z_ob is None:
+        b_s = pair_rhs(b_s, w_ob_scaled, g_oo, b_o, plan.ob_pair_obj, plan.ob_pair_pose)
+    else:
+        g_oo_slot = g_oo[plan.ob_slot_land.long()]
+        y_ob = (g_oo_slot * b_o[plan.ob_slot_land.long()][:, :, None]).sum(1)
+        contrib_ob = z_ob.T @ y_ob.reshape(-1)
+        b_s = b_s - (contrib_ob.reshape(6, n_pose).T if cp_order else contrib_ob.reshape(n_pose, 6))
     b_s = b_s * act[:, None]
 
     # A failed factorization zeroes the step: model_cost_change is then 0 and
@@ -562,7 +716,8 @@ def compute_step(
         delta_flat = torch.where(ok, delta_ref, torch.zeros_like(delta_ref))
         delta_p = delta_flat.reshape(6, n_pose).T if cp_order else delta_flat.reshape(n_pose, 6)
 
-    # ---- back-substitution: delta_x = H^-1 b_x - G (z^T delta_p) ---------
+    # ---- back-substitution: delta_x = H^-1 (b_x - W^T delta_p) ---------
+    # With z live the coupling term is G (z^T delta_p) per landmark row.
     def back_substitute(h_inv, b, g_slot, q, slot_mask, slot_land, n_land):
         """q: (slot rows, d) = z^T delta_p per landmark row."""
         d = b.shape[-1]
@@ -572,24 +727,37 @@ def compute_step(
         padded = torch.cat([delta, delta.new_zeros((1, d))])
         return padded.index_add_(0, safe, -corr)[:n_land]
 
+    def pair_back_substitute(h_inv, b, w, pair_pose, pair_land, n_land):
+        wt_dp = (w * delta_p[pair_pose.long()][:, :, None]).sum(1)
+        return geo.bmv(h_inv, b - _segment_sum(wt_dp, pair_land, n_land))
+
     dp_vec = delta_flat if cp_order else delta_p.reshape(-1)
-    if pt_band:
-        # Group g reads the (c, p) window of poses [64 g, 64 g + 128).
-        dp_pad = delta_p.new_zeros(6 * BAND_TP * (n_group + 1))
-        dp_pad[: 6 * n_pose] = delta_p.reshape(-1)
-        windows = dp_pad.unfold(0, w_band, 6 * BAND_TP)  # (G, 768) in (p, c)
-        windows = windows.reshape(n_group, width, 6).transpose(1, 2).reshape(n_group, w_band)
-        q_pt = torch.bmm(z_pt, windows[:, :, None]).reshape(-1, 3)
+    if z_pt is None:
+        delta_l = pair_back_substitute(
+            h_ll_inv, b_l, w_pt, plan.pt_pair_pose, plan.pt_pair_point, n_point)
     else:
-        q_pt = (z_pt @ dp_vec).reshape(-1, 3)
-    delta_l = back_substitute(
-        h_ll_inv, b_l, g_ll_slot, q_pt, plan.pt_slot_mask, plan.pt_slot_land, n_point
-    )
+        if pt_band:
+            # Group g reads the (c, p) window of poses [64 g, 64 g + 128).
+            dp_pad = delta_p.new_zeros(6 * BAND_TP * (n_group + 1))
+            dp_pad[: 6 * n_pose] = delta_p.reshape(-1)
+            windows = dp_pad.unfold(0, w_band, 6 * BAND_TP)  # (G, 768) in (p, c)
+            windows = windows.reshape(n_group, width, 6).transpose(1, 2).reshape(
+                n_group, w_band)
+            q_pt = torch.bmm(z_pt, windows[:, :, None]).reshape(-1, 3)
+        else:
+            q_pt = (z_pt @ dp_vec).reshape(-1, 3)
+        delta_l = back_substitute(
+            h_ll_inv, b_l, g_ll_slot, q_pt, plan.pt_slot_mask, plan.pt_slot_land, n_point
+        )
     delta_l = delta_l * (~ll_singular)[:, None] * point_free[:, None]
-    delta_o = back_substitute(
-        h_oo_inv, b_o, g_oo_slot, (z_ob @ dp_vec).reshape(-1, 7), plan.ob_slot_mask,
-        plan.ob_slot_land, n_obj,
-    )
+    if z_ob is None:
+        delta_o = pair_back_substitute(
+            h_oo_inv, b_o, w_ob, plan.ob_pair_pose, plan.ob_pair_obj, n_obj)
+    else:
+        delta_o = back_substitute(
+            h_oo_inv, b_o, g_oo_slot, (z_ob @ dp_vec).reshape(-1, 7), plan.ob_slot_mask,
+            plan.ob_slot_land, n_obj,
+        )
     delta_o = delta_o * (~oo_singular)[:, None] * obj_free[:, None]
     delta_p = delta_p * act[:, None]
 
@@ -718,12 +886,9 @@ def compute_marginal_covariances(
     bi, ai = rl.before_idx.long(), rl.after_idx.long()
     s_pp.index_put_((bi, ai), rl_cross, accumulate=True)
     s_pp.index_put_((ai, bi), rl_cross.transpose(1, 2), accumulate=True)
-    cross_a, cross_b = plan.pt_cross_a.long(), plan.pt_cross_b.long()
-    wha = geo.bmm(w_pt[cross_a], h_ll_inv[plan.pt_pair_point.long()[cross_a]])
-    cross = -geo.bmm(wha, w_pt[cross_b].transpose(1, 2))
-    cross = cross * plan.pt_cross_mask[:, None, None].to(dtype)
-    dest_pt = _segment_sum(cross, plan.pt_cross_dest, plan.pt_dest_a.shape[0])
-    dest_pt = dest_pt * plan.pt_dest_mask[:, None, None].to(dtype)
+    dest_pt = _cross_blocks(w_pt, plan.pt_pair_point, plan.pt_cross_a, plan.pt_cross_b,
+                            plan.pt_cross_mask, plan.pt_cross_dest, plan.pt_dest_mask,
+                            h_inv=h_ll_inv)
     s_pp.index_put_((plan.pt_dest_a.long(), plan.pt_dest_b.long()), dest_pt, accumulate=True)
 
     # ---- pose-object coupling ----------------------------------------------

@@ -41,7 +41,10 @@ _SCRIPT = textwrap.dedent(
     assert not [m for m in sys.modules if blocked(m)]
     for name in ("obvi_slam_tpu_torch.cli", "obvi_slam_tpu_torch.io",
                  "obvi_slam_tpu_torch.metrics", "obvi_slam_tpu_torch.optlog",
-                 "obvi_slam_tpu_torch.frontend.bb_retriever"):
+                 "obvi_slam_tpu_torch.frontend.bb_retriever",
+                 "obvi_slam_tpu_torch.solver.jacobian_debug",
+                 "obvi_slam_tpu_torch.cli.debug_jacobian_hessian_diagonal",
+                 "obvi_slam_tpu_torch.factors.epipolar"):
         assert name in names or name in sys.modules, name
     from obvi_slam_tpu_torch.cli import offline_object_visual_slam_main
     try:

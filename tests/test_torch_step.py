@@ -1,6 +1,7 @@
-"""One LM step of obvi_slam_tpu_torch (dense slot-gram Schur path) against
-the JAX reference's compute_step(dense_schur=True) at f64 on CPU, and the
-port's own f32 step against its f64 step."""
+"""One LM step of obvi_slam_tpu_torch (the automatic path choice, here the
+dense slot-gram Schur path) against the JAX reference's
+compute_step(dense_schur=True) at f64 on CPU, and the port's own f32 step
+against its f64 step."""
 
 import numpy as np
 import pytest
@@ -80,14 +81,15 @@ def test_failed_factorization_zeroes_the_pose_step():
 
 
 def test_unported_paths_raise(monkeypatch):
-    """The pair-enumeration path and an over-budget slot grid raise; a banded
-    512-pose problem no longer does: it takes one band solve."""
+    """The paths that once raised now step: pair enumeration and
+    an over-budget slot grid return finite steps; a banded 512-pose problem
+    takes one band solve."""
     state, _, cams, tables, plan, free, weights, huber = synthetic_problem(
         n_poses=16, n_points=64, n_objects=4, device="cpu"
     )
     args = (state, cams, tables, plan, free, weights, 1e4, huber)
-    with pytest.raises(NotImplementedError, match="pair-enumeration"):
-        compute_step(*args, dense_schur=False)
+    d, mc, _ = compute_step(*args, dense_schur=False)
+    assert bool(torch.isfinite(d.poses).all()) and float(mc) > 0
     calls = []
     inner = band_solve.woodbury_band_solve
     monkeypatch.setattr(band_solve, "woodbury_band_solve", lambda *a: calls.append(1) or inner(*a))
@@ -95,10 +97,6 @@ def test_unported_paths_raise(monkeypatch):
     d, mc, _ = compute_step(*big[:1], *big[2:7], 1e4, big[7])
     assert len(calls) == 1
     assert bool(torch.isfinite(d.poses).all()) and float(mc) > 0
-    budget = schur_mod._SLOT_BUDGET
-    try:
-        schur_mod._SLOT_BUDGET = 1
-        with pytest.raises(NotImplementedError, match="over budget"):
-            compute_step(*args)
-    finally:
-        schur_mod._SLOT_BUDGET = budget
+    monkeypatch.setattr(schur_mod, "_SLOT_BUDGET", 1)
+    d, mc, _ = compute_step(*args)
+    assert bool(torch.isfinite(d.poses).all()) and float(mc) > 0
