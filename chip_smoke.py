@@ -87,6 +87,19 @@ whose selection may differ in at most 5% of the excluded factors; and
     against the CPU's plain run, and the ``debug_jacobian_hessian_diagonal``
     CLI with ``--device cuda`` against ``--device cpu``.
 
+The sharded phase runs global BA over four gloo rank processes that
+share the one card (``chip_smoke.py --sharded-rank r 4 port dir``, started
+after the build, joined after the synthetic phases): ``scale_1024`` on 4 and on 2
+ranks (the band solve domain-decomposed, one domain per rank), ``window``
+on 2 (K4 on each rank's landmark rows) and ``loop_1024`` on 2 (pair
+enumeration), each the f64 plain step against one process (1e-9), the f32
+two-phase solve through the kernels against the f64 plain one on the ranks
+(1e-3), ranks equal bit for bit, every kernel launched on every rank and
+held against its plain version on the rank's operands, the
+domain-decomposed step's all-gather budget; it prints the collectives and
+ms per LM iteration (ranks sharing one card: correctness and traffic, not
+scaling).
+
 The two f64 plain sessions, and the second object session, run in
 processes of their own on the same card (``chip_smoke.py
 --session-process session|objects|second [args]``): the plain ones
@@ -112,6 +125,7 @@ then non-zero and the last line is not printed. There is no CPU path.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -131,6 +145,7 @@ import torch  # noqa: E402
 
 import obvi_slam_tpu_torch as ot  # noqa: E402
 from obvi_slam_tpu_torch import factors as fac  # noqa: E402
+from obvi_slam_tpu_torch import parallel as par  # noqa: E402
 from obvi_slam_tpu_torch import ops  # noqa: E402
 from obvi_slam_tpu_torch.ops import _build, band_gram, syrk  # noqa: E402
 from obvi_slam_tpu_torch.ops import bbox as k_bbox  # noqa: E402
@@ -2156,6 +2171,246 @@ def check_session_reproj(state, cams, table):
     return errs[torch.float32]
 
 
+
+# ---- the sharded path: global BA over gloo ranks sharing the card ---------
+
+SHARDED_RANK_ARG = "--sharded-rank"
+# (phase, ranks) of the sharded phase, in order: the synthetic phases'
+# problems sharded on the factor axis (parallel.shard_problem) over gloo
+# ranks that share the one card: scale_1024's band solve domain-decomposed
+# at h = 4 (4 tiles per domain) and h = 2 (8), the window's dense slot gram
+# through K4 on each rank's landmark rows (the runner's shard_local_ba), and
+# loop_1024's pair enumeration. The 2-rank runs take ranks 0 and 1.
+SHARDED = (("scale_1024", 4), ("scale_1024", 2), ("window", 2), ("loop_1024", 2))
+SHARDED_RANKS = 4
+SHARDED_PATHS = {"scale_1024": "band_solve", "window": "pt_slot",
+                 "loop_1024": "pair_enumeration"}
+# The domain-decomposed step's all-gather budget (the reference's,
+# tests/test_sharding_collectives.py): no f32 operand above (h, 384, 512),
+# under 20 MB in all.
+DD_GATHER_BYTES = 20e6
+SHARDED_TIMEOUT_S = 900
+WRAPPER_NAMES = {"reproj": "reproj_residuals_and_jac", "bbox": "bbox_residuals_and_jac",
+                 "band_gram": "band_zbuild_gram", "syrk": "syrk_gram"}
+
+
+def _shard(prob, mesh):
+    """(state, cams, tables, plan, free, weights, huber): the rank's shard."""
+    state, _, cams, tables, plan, free, weights, huber = prob
+    return (state, cams, par.shard_tables(tables, mesh), par.shard_plan(plan, mesh), free,
+            par.shard_weights(weights, mesh), huber)
+
+
+def _per_iteration(by_op, iters):
+    return {op: dict(count=v["count"] / iters, bytes=v["bytes"] / iters)
+            for op, v in by_op.items()}
+
+
+def check_kernels_on_shard(spies, tag):
+    """Each kernel the solve launched, on the last operands this rank handed
+    it, against its plain version (K1/K2 in f32 by the object tables' per-row
+    rule, ``_compare_f32_rounding``: near the optimum f32 rounds the
+    residuals themselves). Returns {kernel: max abs error}."""
+    errs = {}
+    for name, spy in spies.items():
+        args = spy.operands
+        if name in ("reproj", "bbox"):
+            wrapper, plain = _factor_fns(name)
+            out_k, out_p = wrapper(*args), plain(*args)
+            torch.cuda.synchronize()
+            if out_p[0].dtype == torch.float32:
+                exact = plain(*(_cast(x, torch.float64) for x in args[:3]), *args[3:])
+                errs[name] = _compare_f32_rounding(f"{name} {tag}", out_k, out_p, exact,
+                                                   args[2].mask)["err"]
+                continue
+            live = args[2].mask
+        else:
+            wrapper = getattr(ops, WRAPPER_NAMES[name])
+            out_k, out_p, live = wrapper(*args), _gram_fns(name)[2](*args), None
+        torch.cuda.synchronize()
+        out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+        out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+        errs[name] = _compare(f"{name} {tag}", out_k, out_p, out_p[0].dtype, live,
+                              gram=name in ("band_gram", "syrk"))
+    return errs
+
+
+def sharded_config(label, mesh):
+    """One (phase, ranks) entry of SHARDED on this rank: the f64 plain step
+    on the ranks against the single-process one (rank 0, rel <= 1e-9); one
+    f32 kernel step's collectives (the domain-decomposed step's all-gather
+    budget at scale_1024); the f32 two-phase solve through the kernels
+    between a reset and a read of the launch counts, timed, its collectives
+    recorded; each launched kernel against its plain version on this rank's
+    operands; the f64 plain two-phase solve on the ranks, phase 2 with the
+    f32 run's selection, within 1e-3 of the f32 final costs. Returns (the
+    JSON result, the f32 final state)."""
+    tag = f"{label}@{mesh.size} rank {mesh.rank}"
+    kernels = PHASES[label][1]
+    p64 = phase_problem(label, np.float64)
+    sh64 = _shard(p64, mesh)
+    step_n = ot.compute_step(*sh64[:6], 1e4, sh64[6], plain=True, mesh=mesh)
+    rel64 = None
+    if mesh.rank == 0:
+        state, _, cams, tables, plan, free, weights, huber = p64
+        step_1 = ot.compute_step(state, cams, tables, plan, free, weights, 1e4, huber,
+                                 plain=True)
+        rel64 = max([rel(a, b) for a, b in zip(step_n[0], step_1[0])]
+                    + [rel(a, b) for a, b in zip(step_n[1:], step_1[1:])])
+        if not rel64 <= 1e-9:
+            raise AssertionError(f"{tag}: f64 plain step on {mesh.size} ranks vs one process "
+                                 f"rel {rel64:.3e} > 1e-9")
+
+    p32 = phase_problem(label, np.float32)
+    sh32 = _shard(p32, mesh)
+    with par.audit.recording() as records:
+        ot.compute_step(*sh32[:6], 1e4, sh32[6], mesh=mesh)  # also the warm-up
+    step_ops = par.audit.collect_collectives(records)
+    if label == BAND_SOLVE_PHASE:
+        h = schur_mod._dd_domains(mesh, SCALE["n_poses"] // 64)
+        gathers = step_ops["all-gather"]
+        for shape in gathers["shapes"]:
+            dims = [int(d) for d in shape[shape.index("[") + 1:-1].split(",")]
+            if not (shape.startswith("f32") and math.prod(dims) <= h * 384 * 512):
+                raise AssertionError(f"{tag}: all-gather {shape} past (h, 384, 512) f32")
+        if not gathers["bytes"] < DD_GATHER_BYTES:
+            raise AssertionError(f"{tag}: {gathers['bytes']} B of all-gathers per step")
+
+    state, cams, tables, plan, free, weights, huber = sh32
+    aux = TwoPhaseAux(is_ltm_obj=torch.zeros(state.objects.shape[0], dtype=torch.bool,
+                                             device=state.objects.device),
+                      shape_live=tables.shape.mask)
+    spies = {name: Spy(ops, WRAPPER_NAMES[name]) for name in kernels}
+    with contextlib.ExitStack() as stack:
+        for spy in spies.values():
+            stack.enter_context(spy)
+        selection = stack.enter_context(Spy(tp_mod, "reweight_on_device"))
+        records = stack.enter_context(par.audit.recording())
+        torch.cuda.synchronize()
+        ops.reset_kernel_launches()
+        schur_mod.reset_path_counts()
+        t0 = time.perf_counter()
+        final, s1, s2 = solve_two_phase(state, cams, tables, plan, free, weights, aux,
+                                        LMParams(), LMParams(), huber, TwoPhaseConfig(),
+                                        mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.kernel_launches()
+        paths = dict(schur_mod.path_counts)
+    iters = s1.num_iterations + s2.num_iterations
+    check_result(final, (s1, s2), f"{tag} f32 kernels")
+    for name in kernels:
+        if launches[name] <= 0:
+            raise AssertionError(f"{tag}: kernel {name} was not launched")
+    if paths.get(SHARDED_PATHS[label]) != iters:
+        raise AssertionError(f"{tag}: {paths} over {iters} LM iterations")
+    errs = check_kernels_on_shard(spies, tag)
+
+    weights2 = schur_mod.FactorWeights(*(w.double() for w in selection.result))
+    _, r1 = solve(*sh64[:6], LMParams(), sh64[6], plain=True, mesh=mesh)
+    _, r2 = solve(*sh64[:5], weights2, LMParams(), sh64[6], plain=True, mesh=mesh)
+    gaps = [abs(a.final_cost - b.final_cost) / b.final_cost for a, b in ((s1, r1), (s2, r2))]
+    if not max(gaps) <= 1e-3:
+        raise AssertionError(f"{tag}: final cost gaps f32 kernels vs f64 plain {gaps} > 1e-3")
+    return dict(
+        rel64=rel64, iters=iters, wall_s=wall, ms_per_iter=1e3 * wall / iters,
+        costs=[s1.final_cost, s2.final_cost], gaps=gaps, launches=launches, paths=paths,
+        errs=errs, step_collectives=step_ops,
+        collectives_per_iter=_per_iteration(par.audit.collect_collectives(records), iters),
+    ), [x.cpu() for x in final]
+
+
+def sharded_rank(rank, world, port, out_dir):
+    """The body of a rank of the sharded phase: joins the gloo group at
+    localhost:``port``, runs every SHARDED entry it takes part in, saves each
+    f32 final state to ``out_dir`` and prints its results as one JSON line."""
+    import datetime
+
+    import torch.distributed as dist
+
+    preconditions()
+    torch.set_num_threads(1)
+    rank, world = int(rank), int(world)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT_S))
+    pair = dist.new_group([0, 1])
+    results = {}
+    for label, n in SHARDED:
+        if rank < n:
+            mesh = par.make_mesh(group=None if n == world else pair, device=DEVICE)
+            results[f"{label}@{n}"], final = sharded_config(label, mesh)
+            torch.save(final, Path(out_dir) / f"{label}@{n}_rank{rank}.pt")
+        dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps(results))
+
+
+def start_sharded_ranks(out_dir, command=None):
+    """The sharded phase's SHARDED_RANKS ranks, each a process of its own on
+    the card: [(process, stdout file, stderr file)]."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    command = command or [sys.executable, str(Path(__file__).resolve())]
+    ranks = []
+    for r in range(SHARDED_RANKS):
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        ranks.append((subprocess.Popen(
+            command + [SHARDED_RANK_ARG, str(r), str(SHARDED_RANKS), str(port), str(out_dir)],
+            stdout=out, stderr=err, cwd=str(REPO)), out, err))
+    return ranks
+
+
+def join_sharded_ranks(ranks, out_dir, t_start):
+    """Waits for the ranks (all stopped as soon as one fails, or at
+    SHARDED_TIMEOUT_S), checks that the ranks of each entry ended in the
+    same state bit for bit, prints what each entry measured and returns
+    {entry: [launches per rank]}."""
+    deadline = time.perf_counter() + SHARDED_TIMEOUT_S
+    while any(p.poll() is None for p, _, _ in ranks):
+        if time.perf_counter() > deadline or any(p.poll() for p, _, _ in ranks):
+            break
+        time.sleep(0.5)
+    time.sleep(1.0)
+    stop_session_processes({r: w for r, w in enumerate(ranks)})
+    results = []
+    for r, (proc, out, err) in enumerate(ranks):
+        out.seek(0)
+        err.seek(0)
+        text = out.read()
+        if proc.returncode != 0:
+            raise RuntimeError(f"sharded rank {r}: exit code {proc.returncode}\n"
+                               f"{text[-3000:]}\n{err.read()[-6000:]}")
+        results.append(json.loads(text.strip().splitlines()[-1]))
+    print(f"sharded phase: joined {time.perf_counter() - t_start:.1f} s after its start")
+    launches = {}
+    for label, n in SHARDED:
+        key = f"{label}@{n}"
+        finals = [torch.load(Path(out_dir) / f"{key}_rank{r}.pt") for r in range(n)]
+        if not all(torch.equal(a, b) for f in finals[1:] for a, b in zip(f, finals[0])):
+            raise AssertionError(f"{key}: the ranks' final states differ")
+        res = [results[r][key] for r in range(n)]
+        r0 = res[0]
+        launches[key] = [x["launches"] for x in res]
+        per_iter = ", ".join(f"{op} {v['count']:.2f} ({v['bytes'] / 1e6:.3f} MB)"
+                             for op, v in r0["collectives_per_iter"].items())
+        step = ", ".join(f"{op} {v['count']} ({v['bytes'] / 1e6:.3f} MB; {v['shapes'][:6]})"
+                         for op, v in r0["step_collectives"].items())
+        print(f"sharded {key} (ranks sharing one card over gloo: correctness and traffic, "
+              f"not scaling): f64 plain step vs one process rel {r0['rel64']:.3e}; f32 "
+              f"two-phase {r0['iters']} LM iterations in {r0['wall_s']:.4f} s, "
+              f"{r0['ms_per_iter']:.3f} ms per LM iteration; final costs {r0['costs']}, gaps "
+              f"to f64 plain {r0['gaps']}; paths {r0['paths']}")
+        print(f"sharded {key} collectives per LM iteration: {per_iter}; one f32 step: {step}")
+        for r, x in enumerate(res):
+            print(f"sharded {key} rank {r}: launches {x['launches']}; kernel vs plain on the "
+                  "rank's operands max abs err "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in x["errs"].items()))
+    return launches
+
+
 SESSION_PROCESS_ARG = "--session-process"
 
 
@@ -2288,6 +2543,11 @@ def main():
         workers["session"] = start_session_process("session")
         workers["objects"] = start_session_process("objects", str(exported["objects"][0]))
         build()
+        sharded_dir = Path(tmp.name) / "sharded"
+        sharded_dir.mkdir()
+        t_sharded = time.perf_counter()
+        sharded = start_sharded_ranks(sharded_dir)
+        workers.update({f"sharded rank {r}": w for r, w in enumerate(sharded)})
         check_kernels(np.float64)
         errs = check_kernels(np.float32)
         check_grams(np.float64)
@@ -2305,6 +2565,8 @@ def main():
         fixed_iterations("scale_1024", n_iters=10)
         fixed_iterations("loop_1024", n_iters=10)
         print(f"[{time.perf_counter() - t_start:.1f} s] synthetic phases done")
+        sharded_launches = join_sharded_ranks(sharded, sharded_dir, t_sharded)
+        print(f"[{time.perf_counter() - t_start:.1f} s] sharded phase done")
         session = session_phase()
         errs["syrk"] = max(errs["syrk"], check_session_gram(session["syrk_operand"]))
         errs["reproj"] = max(errs["reproj"], check_session_reproj(*session["reproj_operands"]))
@@ -2326,7 +2588,11 @@ def main():
         profile_session(session["run"])
         profile_objects(objects["run"])
         print(f"[{time.perf_counter() - t_start:.1f} s] profiles done")
-        check_session_processes(join_session_processes(workers), session, objects)
+        check_session_processes(join_session_processes(
+            {k: v for k, v in workers.items() if not k.startswith("sharded")}), session, objects)
+        for row in rows:
+            row["sharded_launches"] = {key: [x[row["name"]] for x in per_rank]
+                                       for key, per_rank in sharded_launches.items()}
     finally:
         stop_session_processes(workers)
         tmp.cleanup()
@@ -2346,5 +2612,7 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) >= 3 and sys.argv[1] == SESSION_PROCESS_ARG:
         session_process(*sys.argv[2:])
+    elif len(sys.argv) >= 3 and sys.argv[1] == SHARDED_RANK_ARG:
+        sharded_rank(*sys.argv[2:])
     else:
         main()

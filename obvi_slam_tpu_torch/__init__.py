@@ -30,6 +30,9 @@ Layout (each module keeps the name of its counterpart in ``obvi_slam_tpu``):
   - ``ltm``, ``ltm_pairwise``    the long-term object map: marginal
                                  covariances, repair, JSON, next-session
                                  seeding;
+  - ``parallel``                 multi-device global BA: meshes over
+                                 ``torch.distributed`` ranks, factor-axis
+                                 shards, the collectives and their audit;
   - ``synthetic``, ``convert``   test problems and sessions, and state
                                  exchange with the reference package.
 
@@ -38,7 +41,7 @@ kernel wrapper runs its plain PyTorch version. This package imports torch and
 numpy only.
 """
 
-from obvi_slam_tpu_torch import config, factors, geometry, ops, solver, types  # noqa: F401
+from obvi_slam_tpu_torch import config, factors, geometry, ops, parallel, solver, types  # noqa: F401
 from obvi_slam_tpu_torch.ops import kernel_launches, reset_kernel_launches  # noqa: F401
 from obvi_slam_tpu_torch.solver.schur import path_counts, reset_path_counts  # noqa: F401
 from obvi_slam_tpu_torch.pose_graph import PoseGraph  # noqa: F401

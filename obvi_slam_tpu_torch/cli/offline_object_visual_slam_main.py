@@ -18,10 +18,18 @@ file formats and names:
 Every flag of the reference package's CLI is accepted with its meaning,
 except that ``--platform`` is ``--device`` (a torch device, default
 ``cuda``; with no card the run fails, it never falls back to the CPU) and
-three flags need modules not ported yet: ``--shard_devices`` above 1 and
-``--shard_local_ba`` (``parallel/``), ``--debug_images_output_directory``
-(``visualization.py``); each exits with a message. ``--f64`` runs f64
-tables (else f32). ``--fused_solver off`` takes the runner's host-loop
+``--debug_images_output_directory`` needs ``visualization.py``, not ported
+yet: it exits with a message. ``--f64`` runs f64 tables (else f32).
+
+``--shard_devices N`` (N > 1) shards the global-BA solves over N ranks
+(``parallel``; ``--shard_local_ba`` the window solves too): one process per
+CUDA device over NCCL, or N gloo processes under ``--device cpu``. Started
+alone, the entry point launches the N ranks itself (this module again,
+with ``COORDINATOR_ADDRESS``, ``NUM_PROCESSES`` and ``PROCESS_ID`` set at a
+free localhost port) and returns the first non-zero exit code of theirs;
+started with those variables set (by that launch, or by a launcher of the
+user's on several hosts), it is one rank. Every rank runs the session;
+rank 0 writes the outputs. ``--fused_solver off`` takes the runner's host-loop
 two-phase branch; ``auto`` and ``on`` its fused one.
 
 The session is built, run and written by ``build_session``, ``run_session``
@@ -43,8 +51,10 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 from obvi_slam_tpu_torch import config as cfg
+from obvi_slam_tpu_torch import parallel
 from obvi_slam_tpu_torch import io as oio
 from obvi_slam_tpu_torch import optlog
 from obvi_slam_tpu_torch.cli._common import check_device, disable_tf32, read_problem_data
@@ -71,11 +81,7 @@ OPT_LOG_HEADER = (
     "final_cost,iterations,termination"
 )
 # Flags whose module is not ported yet: (flag, module).
-UNPORTED = (
-    ("--shard_devices", "parallel/"),
-    ("--shard_local_ba", "parallel/"),
-    ("--debug_images_output_directory", "visualization.py"),
-)
+UNPORTED = (("--debug_images_output_directory", "visualization.py"),)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -103,10 +109,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", default="cuda",
                         help="torch device of the solves (default cuda; cpu runs on the CPU)")
     parser.add_argument("--f64", action="store_true", help="double-precision solves")
-    parser.add_argument("--shard_devices", type=int, default=0,
-                        help="not ported (parallel/): values above 1 exit with a message")
+    parser.add_argument(
+        "--shard_devices", type=int, default=0,
+        help="shard global-BA solves over N ranks, one per CUDA device (gloo processes "
+        "under --device cpu); 0 or 1 = one process")
     parser.add_argument("--shard_local_ba", action="store_true",
-                        help="not ported (parallel/): exits with a message")
+                        help="also shard sliding-window (local BA) solves over the ranks")
     parser.add_argument(
         "--detector_command", default="",
         help="live detector worker command (newline-delimited JSON {image_path, ...} -> "
@@ -132,17 +140,48 @@ def parse_args(argv=None) -> argparse.Namespace:
     ported."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    given = {
-        "--shard_devices": args.shard_devices > 1,
-        "--shard_local_ba": args.shard_local_ba,
-        "--debug_images_output_directory": bool(args.debug_images_output_directory),
-    }
+    given = {"--debug_images_output_directory": bool(args.debug_images_output_directory)}
     for flag, module in UNPORTED:
         if given[flag]:
             parser.error(f"{flag} needs {module}, which obvi_slam_tpu_torch does not port yet")
     if args.detector_command and not args.images_dir:
         parser.error("--detector_command requires --images_dir")
+    if args.shard_devices > 1:
+        on_cpu = torch.device(args.device).type == "cpu"
+        n = (os.cpu_count() or 1) if on_cpu else torch.cuda.device_count()
+        if args.shard_devices > n:
+            raise SystemExit(f"--shard_devices {args.shard_devices} exceeds the {n} available "
+                             f"{'cpu' if on_cpu else 'cuda'} devices")
     return args
+
+
+def launch_ranks(argv, n: int) -> int:
+    """This entry point on ``n`` ranks, each a process of its own meeting at
+    a free localhost port; waits for them all and returns the first non-zero
+    exit code (every rank is stopped as soon as one fails)."""
+    import socket
+    import subprocess
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ, COORDINATOR_ADDRESS=f"localhost:{port}", NUM_PROCESSES=str(n),
+               PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    procs = [subprocess.Popen([sys.executable, "-m", __spec__.name, *argv],
+                              env=dict(env, PROCESS_ID=str(r))) for r in range(n)]
+    code = 0
+    try:
+        while any(p.poll() is None for p in procs) and code == 0:
+            code = next((p.returncode for p in procs if p.returncode), 0)
+            time.sleep(0.1)
+        code = code or next((p.returncode for p in procs if p.returncode), 0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return code
 
 
 @dataclass
@@ -244,8 +283,19 @@ def build_session(args: argparse.Namespace, *, plain: bool = False) -> Session:
         merge_objects_by_center_proximity(p, merge.max_merge_distance, merge.x_y_only_merge),
         bb_frontend,
     )
+    mesh = None
+    if args.shard_devices > 1:
+        parallel.initialize_distributed(device=args.device)
+        mesh = parallel.make_mesh(device=args.device)
+        if mesh.device.type == "cpu":
+            # Ranks on one host share its cores.
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.size))
+        if mesh.size != args.shard_devices:
+            raise SystemExit(f"--shard_devices {args.shard_devices}: the process group has "
+                             f"{mesh.size} ranks")
     runner = OfflineProblemRunner(
-        config, hooks, dtype=dtype, device=args.device, plain=plain,
+        config, hooks, dtype=dtype, device=args.device, plain=plain, mesh=mesh,
+        shard_local_ba=args.shard_local_ba,
         use_fused_solver={"auto": None, "on": True, "off": False}[args.fused_solver],
     )
     return Session(
@@ -291,8 +341,10 @@ def write_outputs(session: Session) -> Optional[LongTermObjectMap]:
     where the config allows), the robot poses, bounding-box associations,
     ellipsoids and visual features, the per-solve log, the timing report and
     the per-iteration CSVs (``ceres_iterations_<type>.csv``). Returns the
-    LTM, or None."""
+    LTM, or None. On a mesh only rank 0 writes (and extracts the LTM)."""
     args, pg, runner = session.args, session.pg, session.runner
+    if not runner.is_rank0:
+        return None
     if args.checkpoint_output_dir:
         _write_state(pg, os.path.join(args.checkpoint_output_dir, "pose_graph_state.json"))
     ltm = None
@@ -363,6 +415,8 @@ def _log_to(logs_directory):
 def main(argv=None) -> int:
     t_start = time.time()
     args = parse_args(argv)
+    if args.shard_devices > 1 and "COORDINATOR_ADDRESS" not in os.environ:
+        return launch_ranks(sys.argv[1:] if argv is None else list(argv), args.shard_devices)
     disable_tf32()
     undo_logging = _log_to(args.logs_directory)
     try:
@@ -383,6 +437,8 @@ def main(argv=None) -> int:
     finally:
         optlog.IterationLoggerFactory.reset()
         undo_logging()
+        if args.shard_devices > 1 and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     print(
         f"frames={len(pg.robot_poses)} features={len(pg.features)} "
         f"objects={len(pg.objects)} wall={time.time() - t_start:.1f}s"

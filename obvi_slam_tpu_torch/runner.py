@@ -22,9 +22,16 @@ Counterpart of ``obvi_slam_tpu/runner.py`` (``OfflineProblemRunner``):
 The pose graph stays on the host; each window's tables go to ``device``.
 Timer names are the reference's (``timing.timer``). Every solve's LM
 iterations go to the optimization logger (``optlog``) when it has a
-directory. Not ported, each raising ``NotImplementedError``: the
-multi-device ``mesh`` / ``shard_local_ba``. The reference's capacity
-presizing and device diff-sync are not ported either.
+directory. The reference's capacity presizing and device diff-sync are not
+ported.
+
+With a ``mesh`` (``parallel.make_mesh``) every rank runs the session
+identically on the host, and global-BA problems (window problems too with
+``shard_local_ba``) are sharded on the factor axis (``shard_problem``) and
+solved on the ranks together; the other solves (windows, PGO) run whole on
+every rank. Each solve's state is broadcast from rank 0, so the ranks' pose
+graphs stay equal bit for bit. Rank 0 alone calls the checkpoint and solve
+hooks and feeds the optimization logger.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from dataclasses import dataclass
 from typing import Callable, List, Optional
 
 import numpy as np
+import torch
 from scipy.spatial.transform import Rotation
 
 from obvi_slam_tpu_torch import config as cfg
@@ -41,6 +49,7 @@ from obvi_slam_tpu_torch import factors as fac
 from obvi_slam_tpu_torch import optlog
 from obvi_slam_tpu_torch.frontend.visual_features import VisualFeatureFrontend, _pose_to_rt
 from obvi_slam_tpu_torch.offline_data import OfflineProblemData
+from obvi_slam_tpu_torch.parallel import comm, sharding
 from obvi_slam_tpu_torch.pgo import run_pgo_plus_ellipsoids, run_tracking_solve
 from obvi_slam_tpu_torch.pose_graph import (
     OBJECT_OBSERVATION_FACTOR,
@@ -166,7 +175,11 @@ class OfflineProblemRunner:
     phase under its own timers). Both select the same exclusions. The
     reference picks by device when None (its fused loop is one device
     program); the port's fused loop is already a host loop with one readback
-    per LM iteration, so None takes it on every device."""
+    per LM iteration, so None takes it on every device.
+
+    ``mesh``: shard global-BA solves over its ranks (a ``parallel.Mesh`` of
+    an initialized process group; see the module docstring);
+    ``shard_local_ba`` shards the window solves as well."""
 
     def __init__(
         self,
@@ -179,8 +192,11 @@ class OfflineProblemRunner:
         shard_local_ba: bool = False,
         use_fused_solver: Optional[bool] = None,
     ):
-        if mesh is not None or shard_local_ba:
-            raise NotImplementedError("the multi-device runner (mesh) is not ported")
+        if mesh is not None:
+            sharding.check_mesh(mesh)
+        self.mesh = mesh
+        self.shard_local_ba = shard_local_ba
+        self.is_rank0 = mesh is None or mesh.rank == 0
         self.config = config
         self.hooks = hooks or RunnerHooks()
         self.dtype = dtype
@@ -207,13 +223,29 @@ class OfflineProblemRunner:
         update_caps_pool(pool, problem)
         return problem
 
-    def solve(self, problem: Problem, params: LMParams, weights=None):
-        """One LM solve of a built Problem: (final_state, LMSummary)."""
-        return solve(
+    def solve(self, problem: Problem, params: LMParams, weights=None, mesh=None):
+        """One LM solve of a built Problem: (final_state, LMSummary). With
+        ``mesh`` the problem (and ``weights``) is the rank's shard."""
+        state, summary = solve(
             problem.state, problem.cams, problem.tables, problem.plan, problem.free,
             problem.weights if weights is None else weights, params, problem.huber,
-            plain=self.plain,
+            plain=self.plain, mesh=mesh,
         )
+        return self._agree(state), summary
+
+    def _solve_mesh(self, global_ba: bool):
+        """The mesh a BA problem is sharded on, or None."""
+        if self.mesh is not None and (global_ba or self.shard_local_ba):
+            return self.mesh
+        return None
+
+    def _agree(self, state):
+        """Rank 0's state on every rank (a no-op without a mesh)."""
+        if self.mesh is None:
+            return state
+        flat = comm.broadcast(torch.cat([x.reshape(-1) for x in state]), self.mesh)
+        parts = torch.split(flat, [x.numel() for x in state])
+        return type(state)(*(p.reshape(x.shape) for p, x in zip(parts, state)))
 
     # ------------------------------------------------------------------
     def _gba_checker(self, frame_id, max_frame_id) -> bool:
@@ -342,24 +374,27 @@ class OfflineProblemRunner:
         key = "global" if global_ba else "local"
 
         with timer("global_bundle_adjustment" if global_ba else "local_bundle_adjustment"):
+            mesh = self._solve_mesh(global_ba)
             with timer(f"phase_one_{tag}_build_opt"):
                 problem = self._build_problem(pg, scope, key)
+                shard = problem if mesh is None else sharding.shard_problem(problem, mesh)
             snapshot = pg.snapshot_values()
             if two_phase and self.use_fused_solver is not False:
                 # Both phases in one call; the timer covers both.
                 with timer(f"phase_one_{tag}_solve_opt"):
-                    state, s1, s2 = self._solve_two_phase(problem, iteration_params)
+                    state, s1, s2 = self._solve_two_phase(shard, iteration_params, mesh)
                 self._log_solve(problem, s1, next_frame_id, global_ba, 1, attempt_num)
                 self._log_solve(problem, s2, next_frame_id, global_ba, 2, attempt_num)
             elif two_phase:
                 state = self._solve_two_phase_host(
                     pg, problem, snapshot, iteration_params, tag, next_frame_id, global_ba,
-                    attempt_num,
+                    attempt_num, shard, mesh,
                 )
             else:
                 with timer(f"phase_one_{tag}_solve_opt"):
                     state, summary = self.solve(
-                        problem, lm_params_from_config(iteration_params.phase_one_opt_params)
+                        shard, lm_params_from_config(iteration_params.phase_one_opt_params),
+                        mesh=mesh,
                     )
                 self._log_solve(problem, summary, next_frame_id, global_ba, 1, attempt_num)
             write_back(pg, problem, state)
@@ -382,8 +417,9 @@ class OfflineProblemRunner:
             self.hooks.visualization(pg, "AFTER_EACH_OPTIMIZATION", next_frame_id)
         return True
 
-    def _solve_two_phase(self, problem: Problem, iteration_params):
-        """Phase 1, re-selection and phase 2 of one window iteration."""
+    def _solve_two_phase(self, problem: Problem, iteration_params, mesh=None):
+        """Phase 1, re-selection and phase 2 of one window iteration (on the
+        rank's shard with ``mesh``)."""
         sc = problem.scope
         tp_cfg = TwoPhaseConfig(
             feature_outlier_percentage=float(iteration_params.feature_outlier_percentage),
@@ -399,16 +435,18 @@ class OfflineProblemRunner:
             fix_ltm_objects=bool(sc.fix_ltm_objects),
             force_include_ltm_objs=bool(sc.force_include_ltm_objs),
         )
-        return solve_two_phase(
+        state, s1, s2 = solve_two_phase(
             problem.state, problem.cams, problem.tables, problem.plan, problem.free,
             problem.weights, problem.aux,
             lm_params_from_config(iteration_params.phase_one_opt_params),
             lm_params_from_config(iteration_params.phase_two_opt_params),
-            problem.huber, tp_cfg, plain=self.plain,
+            problem.huber, tp_cfg, plain=self.plain, mesh=mesh,
         )
+        return self._agree(state), s1, s2
 
     def _solve_two_phase_host(
-        self, pg, problem, snapshot, iteration_params, tag, frame_id, global_ba, attempt
+        self, pg, problem, snapshot, iteration_params, tag, frame_id, global_ba, attempt,
+        shard=None, mesh=None,
     ):
         """The reference's host loop of a two-phase window: phase-1 solve,
         the worst ``feature_outlier_percentage`` of live reprojection and
@@ -416,10 +454,12 @@ class OfflineProblemRunner:
         residuals, the f32 floor(n_live * pct) count, as the device pass),
         the values restored, the phase-2 weights from the exclusion set, and
         the phase-2 solve from the window's input values. Returns the final
-        state."""
+        state. With ``mesh`` the solves take the rank's ``shard`` and the
+        ranking reads the whole ``problem``."""
+        shard = problem if shard is None else shard
         with timer(f"phase_one_{tag}_solve_opt"):
             state, summary = self.solve(
-                problem, lm_params_from_config(iteration_params.phase_one_opt_params)
+                shard, lm_params_from_config(iteration_params.phase_one_opt_params), mesh=mesh
             )
         self._log_solve(problem, summary, frame_id, global_ba, 1, attempt)
 
@@ -442,10 +482,12 @@ class OfflineProblemRunner:
         pg.restore_values(snapshot)
         with timer(f"phase_two_{tag}_build_opt"):
             weights2 = reweight_for_exclusions(pg, problem, excluded)
+            if mesh is not None:
+                weights2 = sharding.shard_weights(weights2, mesh)
         with timer(f"phase_two_{tag}_solve_opt"):
             state, summary = self.solve(
-                problem, lm_params_from_config(iteration_params.phase_two_opt_params),
-                weights=weights2,
+                shard, lm_params_from_config(iteration_params.phase_two_opt_params),
+                weights=weights2, mesh=mesh,
             )
         self._log_solve(problem, summary, frame_id, global_ba, 2, attempt)
         return state
@@ -480,6 +522,8 @@ class OfflineProblemRunner:
             iterations=summary.num_iterations,
             termination=summary.termination,
         ))
+        if not self.is_rank0:
+            return
         # As the reference's: a PGO solve (phase 0) is logged under the
         # phase-2 type too.
         if global_ba:
@@ -554,7 +598,7 @@ class OfflineProblemRunner:
         return True
 
     def _checkpoint(self, pg, label: str):
-        if self.hooks.checkpoint is not None:
+        if self.hooks.checkpoint is not None and self.is_rank0:
             self.hooks.checkpoint(pg, label)
 
 

@@ -6,6 +6,11 @@ on relative decrease, radius update, function/gradient/parameter/radius
 termination (codes 1-5, ``lm.TERMINATION_NAMES``) and non-monotonic
 bookkeeping as its ``_run_lm``, run as a host loop with one scalar readback
 per iteration (the step, candidate state and cost stay on the device).
+
+With a ``mesh`` (``parallel``) the tables, plan and weights are the rank's
+shard: the cost is all_reduced and the step is equal on every rank, so every
+accept, reject, radius and termination decision reads the same scalars on
+every rank and all ranks run the same iterations.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import math
 import torch
 
 from obvi_slam_tpu_torch import factors as fac
+from obvi_slam_tpu_torch.parallel import comm
 from obvi_slam_tpu_torch.solver import schur as schur_mod
 from obvi_slam_tpu_torch.solver import two_phase as tp_mod
 from obvi_slam_tpu_torch.solver.lm import (
@@ -26,7 +32,12 @@ from obvi_slam_tpu_torch.solver.lm import (
 from obvi_slam_tpu_torch.types import BAState
 
 
-def _cost(state, cams, tables, weights, huber):
+def _cost(state, cams, tables, weights, huber, mesh=None):
+    cost = _local_cost(state, cams, tables, weights, huber)
+    return cost if mesh is None else comm.all_reduce(cost.reshape(1), mesh)[0]
+
+
+def _local_cost(state, cams, tables, weights, huber):
     return fac.total_cost(
         state,
         cams,
@@ -60,13 +71,14 @@ def solve(
     huber: schur_mod.HuberParams = schur_mod.HuberParams(),
     plain: bool = False,
     dense_schur=None,
+    mesh=None,
 ):
     """Run LM from ``state``; returns (final_state, LMSummary) with one
-    IterationRecord per iteration. ``plain`` and ``dense_schur`` (None:
-    the automatic path choice) are passed to compute_step."""
+    IterationRecord per iteration. ``plain``, ``dense_schur`` (None: the
+    automatic path choice) and ``mesh`` are passed to compute_step."""
     if weights is None:
         weights = schur_mod.ones_weights(tables, dtype=state.poses.dtype)
-    cost = float(_cost(state, cams, tables, weights, huber))
+    cost = float(_cost(state, cams, tables, weights, huber, mesh))
     summary = LMSummary(initial_cost=cost, final_cost=cost)
     if params.max_num_iterations == 0:
         summary.termination = "MAX_ITERATIONS"
@@ -82,10 +94,10 @@ def solve(
     while term == 0 and summary.num_iterations < params.max_num_iterations:
         delta, model_change, grad_max = schur_mod.compute_step(
             state, cams, tables, plan, free, weights, radius, huber, dense_schur=dense_schur,
-            plain=plain,
+            plain=plain, mesh=mesh,
         )
         new_state = BAState(*(x + d * m for x, d, m in zip(state, delta, free_cols)))
-        new_cost = _cost(new_state, cams, tables, weights, huber)
+        new_cost = _cost(new_state, cams, tables, weights, huber, mesh)
         # The one device -> host readback of the iteration.
         model_change, grad_max, new_cost, step2, x2 = torch.stack(
             [model_change, grad_max, new_cost, _sq(delta), _sq(state)]
@@ -159,23 +171,24 @@ def solve_two_phase(
     state, cams, tables, plan, free, weights, aux: tp_mod.TwoPhaseAux,
     params1: LMParams, params2: LMParams,
     huber: schur_mod.HuberParams, tp_cfg: tp_mod.TwoPhaseConfig,
-    plain: bool = False, dense_schur=None,
+    plain: bool = False, dense_schur=None, mesh=None,
 ):
     """One window iteration of the reference's two-phase optimization:
     phase-1 LM, outlier ranking + factor re-selection at the phase-1
     optimum, then phase-2 LM restarted from the input state. Returns
-    (final_state, summary1, summary2). ``dense_schur`` as in ``solve``."""
+    (final_state, summary1, summary2). ``dense_schur`` and ``mesh`` as in
+    ``solve`` (with a mesh, ``aux.shape_live`` is the rank's shard too)."""
     final1, summary1 = solve(
         state, cams, tables, plan, free, weights, params1, huber, plain=plain,
-        dense_schur=dense_schur,
+        dense_schur=dense_schur, mesh=mesh,
     )
     res = fac.all_residuals(final1, cams, tables, huber.invalid_ellipse_error)
     weights2 = tp_mod.reweight_on_device(
         tables, weights, res["reproj"], res["bbox"], aux, tp_cfg,
-        n_pose=state.poses.shape[0], n_point=state.points.shape[0],
+        n_pose=state.poses.shape[0], n_point=state.points.shape[0], mesh=mesh,
     )
     final2, summary2 = solve(
         state, cams, tables, plan, free, weights2, params2, huber, plain=plain,
-        dense_schur=dense_schur,
+        dense_schur=dense_schur, mesh=mesh,
     )
     return final2, summary1, summary2

@@ -37,6 +37,25 @@ term, and ``band_solve.woodbury_band_solve`` solves S = B - Z^T Z.
 Other grams are plain float32/float64 matmuls; on the card TF32 must stay
 off (``torch.backends.cuda.matmul.allow_tf32 = False``), which the caller
 sets. ``path_counts`` counts the paths each step took.
+
+With a ``mesh`` (``parallel.sharding``) each rank holds its shard of the
+factor tables and cross rows (``shard_problem``) and the whole replicated
+rest; the reference's GSPMD partitioning becomes explicit collectives
+(``parallel.comm``):
+  - K1, K2 and every factor family run on the rank's rows; the H/b block
+    sums, the prior diagonals and the W pair blocks are partial and combine
+    in one all_reduce;
+  - the relpose rows' Jacobians are all_gathered for S's relpose blocks;
+  - the grams take the rank's landmark rows (K4's, K3's rows of every
+    group; the reference's ``_shard_rows``), the pair enumeration its cross
+    rows, and the partial S (or band quadrants, or destination blocks)
+    combines in one all_reduce; the path choice and the syrk gate read the
+    global problem, so no path depends on the rank count;
+  - the reduced RHS and the back-substitution run replicated from the pair
+    blocks; a dense solve runs replicated; a band solve is domain-decomposed
+    over ``_dd_domains`` domains: one per rank (the tiles go deferred to
+    ``band_solve._dd_rank_solve``) when they number the ranks, else batched;
+  - the step is broadcast from rank 0, so every rank holds it bit for bit.
 """
 
 from __future__ import annotations
@@ -49,6 +68,7 @@ from obvi_slam_tpu_torch import factors as fac
 from obvi_slam_tpu_torch import geometry as geo
 from obvi_slam_tpu_torch import ops
 from obvi_slam_tpu_torch.ops import band_gram, syrk
+from obvi_slam_tpu_torch.parallel import comm, sharding
 from obvi_slam_tpu_torch.solver import band_solve
 from obvi_slam_tpu_torch.solver.plan import BAND_TP
 from obvi_slam_tpu_torch.types import BAState
@@ -112,6 +132,41 @@ def _use_band_solve(n_pose) -> bool:
     if _BAND_SOLVE == "on":
         return True
     return n_pose is not None and n_pose >= _BAND_SOLVE_MIN_POSES
+
+
+# Domain decomposition of the band solve over a mesh: "auto" takes
+# _dd_domains' count, "off" keeps the whole band on every rank.
+_BAND_DD = "auto"
+
+
+def _dd_domains(mesh, nb: int) -> int:
+    """Domains of the band solve: the largest power of two h <= the mesh
+    size that divides nb with >= 2 tiles per domain; 1 = no decomposition."""
+    if _BAND_DD == "off" or mesh is None:
+        return 1
+    h = int(mesh.size)
+    while h > 1 and (nb % h != 0 or nb // h < 2):
+        h //= 2
+    return max(h, 1)
+
+
+def _all_reduce_packed(tensors, mesh):
+    """Sum over the ranks of several tensors through one all_reduce."""
+    flat = comm.all_reduce(torch.cat([t.reshape(-1) for t in tensors]), mesh)
+    parts = torch.split(flat, [t.numel() for t in tensors])
+    return [p.reshape(t.shape) for p, t in zip(parts, tensors)]
+
+
+def _gather_rows(tensors, mesh):
+    """Every rank's rows of several (R, ...) tensors, concatenated in rank
+    order, through one all_gather (integer and bool columns ride as floats)."""
+    dtype = next(t.dtype for t in tensors if t.is_floating_point())
+    cols = [t.reshape(t.shape[0], -1).to(dtype) for t in tensors]
+    gathered = comm.all_gather(torch.cat(cols, 1), mesh).flatten(0, 1)
+    parts = torch.split(gathered, [c.shape[1] for c in cols], dim=1)
+    return [p.reshape((-1,) + tuple(t.shape[1:])) if t.is_floating_point()
+            else p.round().to(t.dtype).reshape((-1,) + tuple(t.shape[1:]))
+            for p, t in zip(parts, tensors)]
 
 
 class SchurPaths(NamedTuple):
@@ -247,7 +302,7 @@ def _syrk_gate(n_land, n_cols):
 
 def _slot_gram(
     w_scaled, slot_gather, slot_pose, slot_mask, n_pose, cp_order=False, plain=False,
-    skip_gram=False,
+    skip_gram=False, rows=None,
 ):
     """Schur subtraction sum_l (W_l G_l)(W_l G_l)^T through the slot grid.
 
@@ -257,7 +312,13 @@ def _slot_gram(
     (6P, 6P) and z flattened to rows (landmark, block column) by columns
     (pose, component), or (component, pose) with ``cp_order``. The pose-major
     gram goes through kernel K4 where the reference's syrk gate holds. With
-    ``skip_gram`` (band solve: z is the Woodbury term) S_sub is None."""
+    ``skip_gram`` (band solve: z is the Woodbury term) S_sub is None. With
+    ``rows`` (lo, hi) only those landmark rows enter (a rank's partial
+    gram); the syrk gate still reads the whole grid."""
+    gate_rows = slot_gather.shape[0]
+    if rows is not None:
+        slot_gather, slot_pose, slot_mask = (x[rows[0]: rows[1]]
+                                             for x in (slot_gather, slot_pose, slot_mask))
     n_land, n_slot = slot_gather.shape
     bw = w_scaled.shape[-1]
     w_comp = w_scaled.reshape(-1, 6 * bw)[slot_gather.reshape(-1).long()]
@@ -269,14 +330,15 @@ def _slot_gram(
     zf = z.reshape(n_land, n_pose, 6, bw).permute(*perm).reshape(n_land * bw, n_pose * 6)
     if skip_gram:
         return None, zf
-    if not cp_order and _syrk_gate(n_land, 6 * n_pose):
+    if not cp_order and _syrk_gate(gate_rows, 6 * n_pose):
         gram = syrk.syrk_gram_plain if plain else ops.syrk_gram
         return gram(zf.contiguous()), zf
     return zf.T @ zf, zf
 
 
 def _band_slot_gram(
-    w_scaled, slot_gather, slot_mask, band_local, n_pose, plain=False, emit_tiles=False
+    w_scaled, slot_gather, slot_mask, band_local, n_pose, plain=False, emit_tiles=False,
+    rows=None,
 ):
     """Banded point gram: the slot grid's rows form G groups of Lg landmarks
     whose poses lie in a 128-pose window starting at pose 64 g. Kernel K3
@@ -285,7 +347,15 @@ def _band_slot_gram(
     overlapping group grams (stride 64, width 128) summed onto a c-major
     S_sub (6P, 6P), index c P + p; or, with ``emit_tiles`` (band solve), the
     three quadrants (q00, q10, q11), each (G, 6, 64, 6, 64), that group g's
-    gram places on tiles (g, g), (g + 1, g) and (g + 1, g + 1), unfolded."""
+    gram places on tiles (g, g), (g + 1, g) and (g + 1, g + 1), unfolded.
+    With ``rows`` (lo, hi) only those landmarks of every group enter (a
+    rank's partial grams)."""
+    if rows is not None:
+        shape = band_local.shape
+        band_local, slot_gather, slot_mask = (
+            x.reshape(shape)[:, rows[0]: rows[1]]
+            for x in (band_local, slot_gather, slot_mask))
+        slot_gather, slot_mask = (x.reshape(-1, shape[2]) for x in (slot_gather, slot_mask))
     n_group, lg, n_slot = band_local.shape
     n_land = n_group * lg
     bw = w_scaled.shape[-1]
@@ -376,19 +446,23 @@ def _cross_blocks(w, pair_land, cross_a, cross_b, cross_mask, cross_dest, dest_m
     return dest * dest_mask[:, None, None].to(w.dtype)
 
 
-def _pair_enumeration_s(n_pose, diag_blocks, rl, rl_cross, plan, w_scaled, w_ob_scaled):
+def _pair_enumeration_s(n_pose, diag_blocks, rl_idx, rl_cross, plan, w_scaled, w_ob_scaled,
+                        mesh=None):
     """Pose-major S (6P, 6P) by pair enumeration (schur.py:1837-1879): the
     masked damped diagonal, each relpose factor's cross blocks at (before,
-    after) and their transposes, and the point and object cross blocks from
-    the scaled pair blocks W G in one accumulating scatter, then
+    after) = ``rl_idx`` and their transposes, and the point and object cross
+    blocks from the scaled pair blocks W G in one accumulating scatter, then
     0.5 (S + S^T) (schur.py:2043-2044). Dead relpose and destination rows
-    carry index 0 and zero blocks."""
+    carry index 0 and zero blocks. With a ``mesh`` the cross rows are the
+    rank's and their destination sums combine in one all_reduce."""
     p_rng = torch.arange(n_pose, device=diag_blocks.device)
-    bidx, aidx = rl.before_idx.long(), rl.after_idx.long()
+    bidx, aidx = rl_idx
     dest_pt = _cross_blocks(w_scaled, plan.pt_pair_point, plan.pt_cross_a, plan.pt_cross_b,
                             plan.pt_cross_mask, plan.pt_cross_dest, plan.pt_dest_mask)
     dest_ob = _cross_blocks(w_ob_scaled, plan.ob_pair_obj, plan.ob_cross_a, plan.ob_cross_b,
                             plan.ob_cross_mask, plan.ob_cross_dest, plan.ob_dest_mask)
+    if mesh is not None:
+        dest_pt, dest_ob = _all_reduce_packed((dest_pt, dest_ob), mesh)
     idx_a = torch.cat([p_rng, bidx, aidx, plan.pt_dest_a.long(), plan.ob_dest_a.long()])
     idx_b = torch.cat([p_rng, aidx, bidx, plan.pt_dest_b.long(), plan.ob_dest_b.long()])
     vals = torch.cat([diag_blocks, rl_cross, rl_cross.transpose(1, 2), dest_pt, dest_ob])
@@ -419,6 +493,7 @@ def compute_step(
     huber: HuberParams = HuberParams(),
     dense_schur=None,
     plain: bool = False,
+    mesh=None,
 ):
     """One LM step: returns (delta: BAState, model_cost_change, grad_max),
     the last two as 0-dim tensors.
@@ -428,7 +503,11 @@ def compute_step(
     path (``choose_paths``); True forces the slot-gram / dense-from-pairs
     path, False pair enumeration. ``plain`` evaluates K1-K4 with their plain
     PyTorch versions on any device (reference runs); otherwise the wrappers
-    launch the CUDA kernels for CUDA tensors."""
+    launch the CUDA kernels for CUDA tensors. With ``mesh`` the tables,
+    weights and plan are this rank's shard (``parallel.shard_problem``) and
+    the outputs are equal on every rank (see the module docstring)."""
+    if mesh is not None:
+        sharding.check_mesh(mesh)
     dtype = state.poses.dtype
     n_pose = state.poses.shape[0]
     n_point = state.points.shape[0]
@@ -502,10 +581,6 @@ def compute_step(
         + _segment_sum(_hb_pack(j_bb_pose, r_bb), bb.pose_idx, n_pose)
         + pp_rel_out
     )
-    h_pp = pp_out[:, :36].reshape(n_pose, 6, 6)
-    h_pp_rel = pp_rel_out[:, :36].reshape(n_pose, 6, 6)
-    b_p = pp_out[:, 36:42]
-
     # ---- scalar parameter priors onto the diagonals ----------------------
     pp_live = pp.mask.to(dtype)
     pp_w2 = pp.inv_std * pp.inv_std * pp_live
@@ -519,15 +594,53 @@ def compute_step(
         out = values.new_zeros(n_block * dim).index_add_(0, flat, values * sel)
         return out.reshape(n_block, dim)
 
+    priors = [prior_accum(0, pose_free, n_pose, 6, pp_w2),
+              prior_accum(1, point_free, n_point, 3, pp_w2),
+              prior_accum(2, obj_free, n_obj, 7, pp_w2),
+              prior_accum(0, pose_free, n_pose, 6, -grad_pp),
+              prior_accum(1, point_free, n_point, 3, -grad_pp),
+              prior_accum(2, obj_free, n_obj, 7, -grad_pp)]
+
+    # ---- W pair blocks ---------------------------------------------------
+    def pair_blocks(j_pose, j_land, pair_factor, factor_pair, pair_mask):
+        n_pair, d = pair_mask.shape[0], j_land.shape[-1]
+        outer = _outer_rr(j_pose, j_land).reshape(-1, 6 * d)
+        if pair_factor is not None and mesh is None:
+            return outer[pair_factor.long()].reshape(n_pair, 6, d)
+        return _segment_sum(outer, factor_pair, n_pair).reshape(n_pair, 6, d)
+
+    w_pt = pair_blocks(j_rp_pose, j_rp_point, plan.pt_pair_factor, plan.rp_factor_pair,
+                       plan.pt_pair_mask)
+    w_ob = pair_blocks(j_bb_pose, j_bb_obj, plan.ob_pair_factor, plan.bb_factor_pair,
+                       plan.ob_pair_mask)
+
+    # Relpose rows for S's relpose blocks: (before, after, live, J_b, J_a).
+    rl_rows = (rl.before_idx.long(), rl.after_idx.long(), rl.mask, j_rl_b, j_rl_a)
+    if mesh is not None:
+        # Partial sums of the rank's factor rows -> whole, on every rank.
+        ll_out, oo_out, pp_out, pp_rel_out, w_pt, w_ob, *priors = _all_reduce_packed(
+            [ll_out, oo_out, pp_out, pp_rel_out[:, :36], w_pt, w_ob, *priors], mesh)
+        rl_rows = tuple(_gather_rows(rl_rows, mesh))
+        h_ll = ll_out[:, :9].reshape(n_point, 3, 3)
+        b_l = ll_out[:, 9:12]
+        h_oo = oo_out[:, :49].reshape(n_obj, 7, 7)
+        b_o = oo_out[:, 49:56]
+    w_pt = w_pt * plan.pt_pair_mask.to(dtype)[:, None, None]
+    w_ob = w_ob * plan.ob_pair_mask.to(dtype)[:, None, None]
+    rl_before, rl_after, rl_live, jb_rl, ja_rl = rl_rows
+    h_pp = pp_out[:, :36].reshape(n_pose, 6, 6)
+    h_pp_rel = pp_rel_out[:, :36].reshape(n_pose, 6, 6)
+    b_p = pp_out[:, 36:42]
+
     def diag_add(h, vec):
         return h + torch.diag_embed(vec)
 
-    h_pp = diag_add(h_pp, prior_accum(0, pose_free, n_pose, 6, pp_w2))
-    h_ll = diag_add(h_ll, prior_accum(1, point_free, n_point, 3, pp_w2))
-    h_oo = diag_add(h_oo, prior_accum(2, obj_free, n_obj, 7, pp_w2))
-    b_p = b_p + prior_accum(0, pose_free, n_pose, 6, -grad_pp)
-    b_l = b_l + prior_accum(1, point_free, n_point, 3, -grad_pp)
-    b_o = b_o + prior_accum(2, obj_free, n_obj, 7, -grad_pp)
+    h_pp = diag_add(h_pp, priors[0])
+    h_ll = diag_add(h_ll, priors[1])
+    h_oo = diag_add(h_oo, priors[2])
+    b_p = b_p + priors[3]
+    b_l = b_l + priors[4]
+    b_o = b_o + priors[5]
 
     grad_max = torch.maximum(
         b_p.abs().max(), torch.maximum(b_l.abs().max(), b_o.abs().max())
@@ -554,23 +667,6 @@ def compute_step(
     h_ll_inv, g_ll = _spd_inverse_and_factor(h_ll_d)
     h_oo_inv, g_oo = _spd_inverse_and_factor(h_oo_d)
 
-    # ---- W pair blocks ---------------------------------------------------
-    def pair_blocks(j_pose, j_land, pair_factor, factor_pair, pair_mask):
-        n_pair, d = pair_mask.shape[0], j_land.shape[-1]
-        outer = _outer_rr(j_pose, j_land).reshape(-1, 6 * d)
-        if pair_factor is not None:
-            w_pair = outer[pair_factor.long()]
-        else:
-            w_pair = _segment_sum(outer, factor_pair, n_pair)
-        return w_pair.reshape(n_pair, 6, d) * pair_mask.to(dtype)[:, None, None]
-
-    w_pt = pair_blocks(
-        j_rp_pose, j_rp_point, plan.pt_pair_factor, plan.rp_factor_pair, plan.pt_pair_mask
-    )
-    w_ob = pair_blocks(
-        j_bb_pose, j_bb_obj, plan.ob_pair_factor, plan.bb_factor_pair, plan.ob_pair_mask
-    )
-
     # ---- reduced camera system S -----------------------------------------
     pose_active = (_diag(h_pp).abs().sum(-1) > 1e-12) & free.poses
     act = pose_active.to(dtype)
@@ -580,11 +676,25 @@ def compute_step(
     # both sides keep an f32 step as close to the f64 one as the slot path's.
     w_scaled = geo.bmm(w_pt, g_ll[plan.pt_pair_point.long()])  # (Np, 6, 3)
     w_ob_scaled = geo.bmm(w_ob, g_oo[plan.ob_pair_obj.long()])  # (No, 6, 7)
-    z_pt = z_ob = None
+    z_pt = z_ob = band_deferred = None
+
+    def rank_rows(n):
+        """This rank's landmark rows of a gram (all of them without a mesh)."""
+        return None if mesh is None else sharding.row_range(n, mesh)
+
+    def cols(u, bw, rows):
+        return u if rows is None else u[:, bw * rows[0]: bw * rows[1]]
+
+    # Relpose cross blocks J_b^T J_a at (before, after); dead rows carry zero
+    # Jacobians, so their clamped indices add exact zeros.
+    rl_cross = _outer_rr(jb_rl, ja_rl)  # (R, 6, 6)
+    bidx = rl_before.clamp(0, n_pose - 1)
+    aidx = rl_after.clamp(0, n_pose - 1)
     if not paths.dense:
         diag_blocks = act[:, None, None] * h_pp_d + (1.0 - act)[:, None, None] * eye6
         s = _pair_enumeration_s(
-            n_pose, diag_blocks, rl, _outer_rr(j_rl_b, j_rl_a), plan, w_scaled, w_ob_scaled
+            n_pose, diag_blocks, (rl_before, rl_after), rl_cross, plan, w_scaled, w_ob_scaled,
+            mesh=mesh,
         )
     else:
         if not paths.pt_slot:
@@ -592,42 +702,60 @@ def compute_step(
                 plan.pt_pair_pose, plan.pt_pair_point, plan.pt_pair_mask, w_scaled, n_pose,
                 n_point,
             )
+            u = cols(u, 3, rank_rows(n_point))
             s_sub_pt = u @ u.T
         elif pt_band:
             s_sub_pt, z_pt = _band_slot_gram(
                 w_scaled, plan.pt_slot_gather, plan.pt_slot_mask, band_local, n_pose, plain,
-                emit_tiles=band_solve_on,
+                emit_tiles=band_solve_on, rows=rank_rows(band_local.shape[1]),
             )
         else:
             s_sub_pt, z_pt = _slot_gram(
                 w_scaled, plan.pt_slot_gather, plan.pt_slot_pose, plan.pt_slot_mask, n_pose,
-                plain=plain,
+                plain=plain, rows=rank_rows(plan.pt_slot_gather.shape[0]),
             )
         if paths.ob_slot:
+            # The band solve's Woodbury term is all of z: no rows split.
             s_sub_ob, z_ob = _slot_gram(
                 w_ob_scaled, plan.ob_slot_gather, plan.ob_slot_pose, plan.ob_slot_mask, n_pose,
                 cp_order=cp_order, plain=plain, skip_gram=band_solve_on,
+                rows=None if band_solve_on else rank_rows(plan.ob_slot_gather.shape[0]),
             )
         else:
             v_ob = _dense_from_pairs(
                 plan.ob_pair_pose, plan.ob_pair_obj, plan.ob_pair_mask, w_ob_scaled, n_pose,
                 n_obj, cp_order=cp_order,
             )
+            v_ob = cols(v_ob, 7, rank_rows(n_obj))
             s_sub_ob = v_ob @ v_ob.T
+        if mesh is not None:
+            # The rank's partial grams -> the whole; z stays the rank's rows,
+            # so the RHS and back-substitution take the pair forms below.
+            if band_solve_on:
+                s_sub_pt = tuple(_all_reduce_packed(s_sub_pt, mesh))
+            else:
+                s_sub_pt = _all_reduce_packed([s_sub_pt + s_sub_ob], mesh)[0]
+                s_sub_ob = torch.zeros((), dtype=dtype, device=s_sub_pt.device)
+            z_pt = None
         if cp_order:
-            # c-major: the damped diagonal blocks and each relpose factor's cross
-            # blocks J_b^T J_a at (before, after) and their transposes are added
-            # onto -(grams) directly. Dead relpose rows carry zero Jacobians, so
-            # their clamped indices add exact zeros.
+            # c-major: the damped diagonal blocks and the relpose blocks at
+            # (before, after) and their transposes go onto -(grams) directly.
             diag_blocks = act[:, None, None] * h_pp_d + (1.0 - act)[:, None, None] * eye6
-            rl_cross = _outer_rr(j_rl_b, j_rl_a)  # (R, 6, 6)
-            bidx = rl.before_idx.long().clamp(0, n_pose - 1)
-            aidx = rl.after_idx.long().clamp(0, n_pose - 1)
             rows_blk = torch.cat([p_rng, bidx, aidx])
             cols_blk = torch.cat([p_rng, aidx, bidx])
             vals = torch.cat([diag_blocks, rl_cross, rl_cross.transpose(1, 2)])
             if band_solve_on:
-                d_tiles, e_tiles = _band_tiles(s_sub_pt, rows_blk, cols_blk, vals)
+                nb = n_pose // BAND_TP
+                n_dom = _dd_domains(mesh, nb)
+                if n_dom > 1 and n_dom == mesh.size:
+                    # Deferred to the ranks' domains: the positive quadrants,
+                    # and the blocks with their tiles (sentinel nb: no rank's).
+                    t_r, t_c = rows_blk // BAND_TP, cols_blk // BAND_TP
+                    band_deferred = (
+                        torch.where(t_r == t_c, t_r, nb), torch.where(t_r == t_c + 1, t_c, nb),
+                        rows_blk % BAND_TP, cols_blk % BAND_TP, vals)
+                else:
+                    d_tiles, e_tiles = _band_tiles(s_sub_pt, rows_blk, cols_blk, vals)
             else:
                 ci = torch.arange(6, device=h_pp.device)
                 rr = (ci[None, :, None] * n_pose + rows_blk[:, None, None]).expand(-1, 6, 6)
@@ -642,17 +770,22 @@ def compute_step(
                 act[:, None, None] * (h_pp_d - h_pp_rel) + (1.0 - act)[:, None, None] * eye6
             )
             l_diag = _cholesky_clamped(diag_blocks)
-            n_rel = j_rl_b.shape[0]
+            n_rel = jb_rl.shape[0]
             k_rng = torch.arange(n_rel, device=h_pp.device)
             v_rel = _dense_from_pairs(
-                torch.cat([rl.before_idx.long(), rl.after_idx.long(), p_rng]),
+                torch.cat([rl_before, rl_after, p_rng]),
                 torch.cat([k_rng, k_rng, n_rel + p_rng]),
-                torch.cat([rl.mask, rl.mask, torch.ones_like(free.poses)]),
-                torch.cat([j_rl_b.transpose(1, 2), j_rl_a.transpose(1, 2), l_diag]),
+                torch.cat([rl_live, rl_live, torch.ones_like(free.poses)]),
+                torch.cat([jb_rl.transpose(1, 2), ja_rl.transpose(1, 2), l_diag]),
                 n_pose,
                 n_rel + n_pose,
             )
             s = v_rel @ v_rel.T - s_sub_pt - s_sub_ob
+    # The band solve's Woodbury term; with a mesh the RHS and the
+    # back-substitution read no slot tensor.
+    z_ob_band = z_ob
+    if mesh is not None:
+        z_ob = None
 
     # ---- reduced RHS: b_S = b_p - sum W H^-1 b = b_p - (W G)(G^T b) ----
     # With a slot tensor z = W G live, one contraction; without it
@@ -695,10 +828,18 @@ def compute_step(
     if band_solve_on:
         # rhs and Z permute into the tiles' (tile, component, local pose)
         # order; iterative refinement runs inside the band solve.
-        nb = n_pose // BAND_TP
         rhs = b_s.T.reshape(6, nb, BAND_TP).transpose(0, 1).reshape(-1)
-        z_band = z_ob.reshape(-1, 6, nb, BAND_TP).transpose(1, 2).reshape(z_ob.shape[0], -1)
-        delta_band, ok = band_solve.woodbury_band_solve(d_tiles, e_tiles, z_band, rhs)
+        z_band = z_ob_band.reshape(-1, 6, nb, BAND_TP).transpose(1, 2).reshape(
+            z_ob_band.shape[0], -1)
+        if band_deferred is not None:
+            delta_band, ok = band_solve.dd_woodbury_band_solve(
+                None, None, z_band, rhs, n_domains=n_dom, mesh=mesh,
+                rel_scatter=band_deferred, gram_quads=s_sub_pt)
+        elif n_dom > 1:
+            delta_band, ok = band_solve.dd_woodbury_band_solve(
+                d_tiles, e_tiles, z_band, rhs, n_domains=n_dom)
+        else:
+            delta_band, ok = band_solve.woodbury_band_solve(d_tiles, e_tiles, z_band, rhs)
         ok = ok & torch.isfinite(delta_band).all()
         delta_band = torch.where(ok, delta_band, torch.zeros_like(delta_band))
         delta_p = delta_band.reshape(nb, 6, BAND_TP).transpose(0, 1).reshape(6, n_pose).T
@@ -773,6 +914,17 @@ def compute_step(
         (delta_p * b_p).sum() + (delta_l * b_l).sum() + (delta_o * b_o).sum()
         + inv_radius * quad_damp
     )
+    if mesh is not None:
+        # Rank 0's step on every rank, bit for bit (replicated work on the
+        # card need not round alike on every rank).
+        flat = comm.broadcast(torch.cat([delta_p.reshape(-1), delta_l.reshape(-1),
+                                         delta_o.reshape(-1), model_cost_change[None],
+                                         grad_max[None]]), mesh)
+        sizes = [delta_p.numel(), delta_l.numel(), delta_o.numel(), 1, 1]
+        delta_p, delta_l, delta_o, model_cost_change, grad_max = torch.split(flat, sizes)
+        delta_p, delta_l, delta_o = (delta_p.reshape(n_pose, 6), delta_l.reshape(n_point, 3),
+                                     delta_o.reshape(n_obj, 7))
+        model_cost_change, grad_max = model_cost_change[0], grad_max[0]
     return BAState(delta_p, delta_l, delta_o), model_cost_change, grad_max
 
 

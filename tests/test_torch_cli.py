@@ -188,7 +188,8 @@ def host_loop():
             runner = ot.OfflineProblemRunner(small_config(ot.config), device="cpu",
                                              use_fused_solver=fused)
             inner_tp = runner._solve_two_phase
-            runner._solve_two_phase = lambda p, it: problems.append(p) or inner_tp(p, it)
+            runner._solve_two_phase = (
+                lambda p, it, mesh=None: problems.append(p) or inner_tp(p, it, mesh))
             pg = ot.PoseGraph(ours.cameras)
             assert runner.run_optimization(ours, pg, visual_frontend=prunner.visual_frontend_for(
                 runner, ours))

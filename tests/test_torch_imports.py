@@ -44,7 +44,10 @@ _SCRIPT = textwrap.dedent(
                  "obvi_slam_tpu_torch.frontend.bb_retriever",
                  "obvi_slam_tpu_torch.solver.jacobian_debug",
                  "obvi_slam_tpu_torch.cli.debug_jacobian_hessian_diagonal",
-                 "obvi_slam_tpu_torch.factors.epipolar"):
+                 "obvi_slam_tpu_torch.factors.epipolar",
+                 "obvi_slam_tpu_torch.parallel", "obvi_slam_tpu_torch.parallel.audit",
+                 "obvi_slam_tpu_torch.parallel.comm", "obvi_slam_tpu_torch.parallel.sharding",
+                 "obvi_slam_tpu_torch.parallel.distributed"):
         assert name in names or name in sys.modules, name
     from obvi_slam_tpu_torch.cli import offline_object_visual_slam_main
     try:
