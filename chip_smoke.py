@@ -100,6 +100,33 @@ domain-decomposed step's all-gather budget; it prints the collectives and
 ms per LM iteration (ranks sharing one card: correctness and traffic, not
 scaling).
 
+Then the rest of the package, on the object session's results:
+
+  - ``visualize``: the debug images' overlays (predicted boxes, feature
+    reprojections) of every frame of the final pose graph and frontend,
+    computed on the card and on the CPU in f64, equal counts and values
+    within 1e-9; ms per frame; the PNGs only where PIL is installed;
+  - ``tools``: the sparsifier, interpolator, trajectory length, re-keying
+    by timestamp, sequence and approach metrics (each ATE equal to the
+    in-memory aligned ATE within 1e-9 m), timing analysis and LTM dump, in
+    process on the session's files, each read back (the plots only where
+    matplotlib is installed); host seconds of each;
+  - ``pipeline``: ``single_trajectory_estimator --sparsify --device cuda``
+    on a 32-frame visual session, a process of its own started after the
+    sharded phase: the port's sparsifier, then its main entry point on the
+    card; ATE below half the odometry's, every output read back;
+  - ``frontend_ranks``: a 12-frame object session with four chairs through
+    the main entry point's ``build_session`` with ``--shard_devices 2``, two
+    gloo rank processes on the card (``chip_smoke.py --frontend-rank r 2
+    port dir``): pose graphs, long-term maps (extracted on each rank with
+    deterministic algorithms), pending estimates and solve logs equal bit
+    for bit, at least three chairs, K1 and K2 launched on each rank; it
+    prints the frontend's broadcasts and how far rank 1's estimates were
+    from rank 0's before them;
+  - ``flops``: the reference's FLOP model of one LM iteration
+    (``flops.lm_iteration_flops``) of ``global``, ``window`` and
+    ``scale_1024`` beside their profiled device ms per LM iteration.
+
 The two f64 plain sessions, and the second object session, run in
 processes of their own on the same card (``chip_smoke.py
 --session-process session|objects|second [args]``): the plain ones
@@ -127,8 +154,10 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -2059,7 +2088,8 @@ def profile_phase(label, phase):
     at scale_1024 also the band solve's share of the device time; at
     loop_768 the share of the dense U's gram U U^T, at loop_1024 those of the
     pair path's S scatter and of S's Cholesky (each timed alone on the
-    operands of the profiled solve's last step)."""
+    operands of the profiled solve's last step). Returns the device ms per
+    LM iteration (None when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     problem32 = phase_problem(label, np.float32)
@@ -2082,7 +2112,7 @@ def profile_phase(label, phase):
     iters = s1.num_iterations + s2.num_iterations
     busy_ms = profile_summary(label, prof, prof_wall, iters, "LM iteration")
     if busy_ms <= 0:
-        return
+        return None
     wall_ms_per_iter = phase["wall"] * 1e3 / phase["iters"]
     print(f"profile {label}: busy share {busy_ms / iters / wall_ms_per_iter:.4f} of the "
           f"unprofiled {wall_ms_per_iter:.3f} ms per LM iteration")
@@ -2118,6 +2148,7 @@ def profile_phase(label, phase):
     for what, ms in shares.items():
         print(f"profile {label}: {what} {ms:.3f} ms per call (CUDA events), one call per LM "
               f"iteration: {ms / (busy_ms / iters):.4f} of the device time per LM iteration")
+    return busy_ms / iters
 
 
 def check_session_gram(c):
@@ -2499,9 +2530,16 @@ def join_session_processes(workers):
 
 
 def stop_session_processes(workers):
+    """Kills every process of ``workers`` still running (with its process
+    group where it leads one)."""
+    import signal
+
     for proc, _, _ in workers.values():
         if proc.poll() is None:
-            proc.kill()
+            if os.getpgid(proc.pid) == proc.pid:
+                os.killpg(proc.pid, signal.SIGKILL)
+            else:
+                proc.kill()
             proc.wait()
 
 
@@ -2531,6 +2569,441 @@ def check_session_processes(results, session, objects):
         raise AssertionError("objects: the second session re-associated no map object")
     if not all(r["launches"][k] for k in OBJECTS_KERNELS):
         raise AssertionError(f"objects second session launches {r['launches']}")
+
+
+# ---- debug images, host tools, the one-session pipeline, the frontend on
+# ranks and the FLOP model ----------------------------------------------------
+
+# The one-session pipeline: a visual-only stereo session exported in the
+# reference's formats, run by ``single_trajectory_estimator --sparsify`` (the
+# port's sparsifier at PIPELINE_TRANSL m, then its main entry point on the
+# card) in a process of its own, at the reference's default config.
+PIPELINE = dict(n_frames=32, n_features=600, seed=9)
+PIPELINE_TRANSL = 0.4
+PIPELINE_TIMEOUT_S = 600
+# The frontend on ranks: a short stereo object session (four chairs) at the
+# default config plus the chair prior (every frame a global BA, sharded),
+# through the main entry point with ``--shard_devices 2``, each rank a gloo
+# process on the one card (``chip_smoke.py --frontend-rank r 2 port dir``).
+FRONTEND_RANKS = dict(n_frames=12, n_features=300, n_objects=4, seed=21, baseline=0.12,
+                      odom_noise=0.01)
+FRONTEND_RANK_ARG = "--frontend-rank"
+FRONTEND_MIN_OBJECTS = 3
+# The phases whose LM iteration the FLOP model is set beside.
+FLOPS_PHASES = ("global", "window", "scale_1024")
+# The overlays of the card against the CPU's.
+OVERLAY_RTOL = 1e-9
+
+
+def _matplotlib():
+    """True when matplotlib is installed; else prints why the plots are not
+    drawn."""
+    import importlib.util
+
+    if importlib.util.find_spec("matplotlib") is None:
+        print("matplotlib is not installed: the iteration and --plots_dir plots are not drawn")
+        return False
+    return True
+
+
+def _overlay_values(ov):
+    """A frame's predicted boxes and reprojections as one vector."""
+    return np.concatenate([np.ravel(p) for _, _, p in ov.predicted]
+                          + [r for r in ov.reprojections if r is not None] + [np.zeros(0)])
+
+
+def visualize_phase(tmp, objects):
+    """The debug images' overlays of every frame of the object session's
+    final pose graph and frontend, on the card in f64 and on the CPU in f64:
+    equal counts, box corners and reprojections within OVERLAY_RTOL; ms per
+    frame on the card; the PNGs when PIL is installed."""
+    import importlib.util
+
+    from obvi_slam_tpu_torch import visualization as viz
+
+    run = objects["run"]
+    pg, fe, config = run["pg"], run["frontend"], run["config"]
+    fe_params = config.feature_based_bb_association_params
+    vis_config = viz.SaveToFileVisualizerConfig(fe_params.feature_validity_window,
+                                                fe_params.bounding_box_inflation_size)
+    out = Path(tmp) / "debug_images"
+    card = viz.SaveToFileVisualizer(str(out), vis_config, img_heights_and_widths=fe.img_hw,
+                                    device=DEVICE)
+    host = viz.SaveToFileVisualizer(str(out), vis_config, device="cpu")
+    frames = sorted(pg.robot_poses)
+    card.frame_overlays(pg, fe, frames[-1])  # warm-up
+    overlays, times = [], []
+    for frame in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ov = card.frame_overlays(pg, fe, frame)
+        times.append(time.perf_counter() - t0)
+        overlays.append(ov)
+    worst, n = 0.0, 0
+    for frame, ov in zip(frames, overlays):
+        ref = host.frame_overlays(pg, fe, frame)
+        if (ov is None) != (ref is None):
+            raise AssertionError(f"visualize frame {frame}: overlays on one device only")
+        if ov is None:
+            continue
+        n += ov.count()
+        keys = [(c, o) for c, o, _ in ov.predicted]
+        if (ov.count() != ref.count() or keys != [(c, o) for c, o, _ in ref.predicted]
+                or [r is None for r in ov.reprojections]
+                != [r is None for r in ref.reprojections]):
+            raise AssertionError(f"visualize frame {frame}: card {ov.count()} overlays, "
+                                 f"CPU {ref.count()}")
+        a, b = _overlay_values(ov), _overlay_values(ref)
+        if a.size:
+            worst = max(worst, float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300))))
+        if not np.allclose(a, b, rtol=OVERLAY_RTOL, atol=0):
+            raise AssertionError(f"visualize frame {frame}: card and CPU overlays differ by "
+                                 f"{worst:.3e}")
+    print(f"visualize on {card_line()}: {len(frames)} frames, {n} overlays (predicted boxes "
+          f"{sum(len(o.predicted) for o in overlays if o)}, reprojections "
+          f"{sum(r is not None for o in overlays if o for r in o.reprojections)}), f64 card "
+          f"vs CPU equal counts, worst relative difference {worst:.3e}; "
+          f"{statistics.median(times) * 1e3:.3f} ms per frame median on the card "
+          f"({sum(times) * 1e3 / len(times):.3f} mean, max {max(times) * 1e3:.3f})")
+    if importlib.util.find_spec("PIL") is None:
+        print("PIL is not installed: the debug images are not drawn")
+        return
+    t0 = time.perf_counter()
+    paths = [p for ov in overlays if ov is not None for p in card.draw(ov)]
+    print(f"visualize: {len(paths)} debug images drawn in {time.perf_counter() - t0:.3f} s")
+
+
+def _tool(label, module, argv, seconds):
+    """``module.main(argv)`` in process; must return 0; notes its host
+    seconds."""
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        code = module.main(argv)
+    seconds[label] = time.perf_counter() - t0
+    if code not in (0, None):
+        raise AssertionError(f"tools: {label} returned {code}")
+
+
+def tools_phase(tmp, exported, objects):
+    """The host tools on the object session's files and written outputs, in
+    process, each returning 0 and its outputs read back through the port's
+    readers: the sparsifier and the interpolator, the trajectory length and
+    the re-keying by timestamp, the metrics of the sequence and of the
+    approach (each ATE equal to the aligned ATE of the in-memory trajectory
+    within 1e-9 m), the timing analysis, the LTM dump and, with matplotlib,
+    the iteration and top-down plots. Prints each tool's host seconds."""
+    from obvi_slam_tpu_torch import io as pio
+    from obvi_slam_tpu_torch import metrics
+    from obvi_slam_tpu_torch.cli import (
+        compute_metrics_for_approach,
+        compute_metrics_for_sequence,
+        display_ltm,
+        interpolate_poses_with_required_nodes,
+        iteration_plotter,
+        orb_trajectory_sparsifier,
+        timing_analysis,
+        traj_length_evaluator,
+        utvslam_out_to_poses_by_timestamp,
+    )
+    from obvi_slam_tpu_torch.io import timestamped as tio
+    from obvi_slam_tpu_torch.metrics import schema
+
+    directory, gt, _ = exported
+    src, results, work = Path(directory), Path(tmp) / "objects_out", Path(tmp) / "tools"
+    work.mkdir()
+    pg, seconds = objects["run"]["pg"], {}
+    n = len(gt)
+    est = np.stack([pg.get_robot_pose(i) for i in range(n)])
+    ate_mem = metrics.ate_for_synced_aligned(
+        metrics.align_with_ground_truth(gt, est), gt).rmse_transl_err
+
+    _tool("orb_trajectory_sparsifier", orb_trajectory_sparsifier, [
+        "--input_poses_file", str(src / "poses.csv"),
+        "--input_feature_obs_dir", str(src / "orb_out"),
+        "--output_poses_file", str(work / "sparse" / "poses.csv"),
+        "--output_feature_obs_dir", str(work / "sparse" / "orb_out")], seconds)
+    kept = pio.read_poses_by_node_id(str(work / "sparse" / "poses.csv"))
+    tracks, _ = pio.read_orb_output_directory(str(work / "sparse" / "orb_out"))
+    stamps = [(1000 + i, 250_000_000) for i in range(n)]
+    tio.write_poses_with_timestamps(str(work / "est_by_ts.csv"), list(zip(stamps, est)))
+    tio.write_timestamps(str(work / "required.csv"),
+                         [(1000 + i, 750_000_000) for i in range(n - 1)])
+    _tool("interpolate_poses_with_required_nodes", interpolate_poses_with_required_nodes, [
+        "--poses_by_timestamp_file", str(work / "est_by_ts.csv"),
+        "--required_timestamps_file", str(work / "required.csv"),
+        "--poses_out_file", str(work / "interp.csv")], seconds)
+    interp = tio.read_poses_with_timestamps(str(work / "interp.csv"))
+    tio.write_node_ids_and_timestamps(str(work / "nodes.csv"), list(enumerate(stamps)))
+    _tool("utvslam_out_to_poses_by_timestamp", utvslam_out_to_poses_by_timestamp, [
+        "--poses_by_frame_file", str(results / "robot_poses.csv"),
+        "--frames_for_timestamps_file", str(work / "nodes.csv"),
+        "--poses_by_timestamp_out_file", str(work / "est" / "s" / "trajectory.csv")], seconds)
+    by_ts = tio.read_optional_poses_with_timestamps(str(work / "est" / "s" / "trajectory.csv"))
+    tio.write_poses_with_timestamps(
+        str(work / "gt" / "s" / "interpolated_lego_loam_poses.csv"), list(zip(stamps, gt)))
+    _tool("traj_length_evaluator", traj_length_evaluator, [
+        "--trajectory_files", f"{work / 'interp.csv'},{work / 'est_by_ts.csv'}",
+        "--output_file", str(work / "lengths.json")], seconds)
+    lengths = json.loads((work / "lengths.json").read_text())
+    if not (len(kept) > 1 and tracks and len(interp) == n - 1 and len(by_ts) == n
+            and lengths["total"] > 0):
+        raise AssertionError(f"tools: {len(kept)} sparsified poses, {len(tracks)} tracks, "
+                             f"{len(interp)} interpolated, {len(by_ts)} re-keyed")
+
+    sessions = [dict(name="objects", est_trajectory_file=str(results / "robot_poses.csv"),
+                     gt_trajectory_file=str(src / "gt_poses.csv"))]
+    (work / "sessions.json").write_text(json.dumps(sessions))
+    plots = _matplotlib()
+    _tool("compute_metrics_for_sequence", compute_metrics_for_sequence, [
+        "--sequence_results_file", str(work / "sessions.json"),
+        "--metrics_out_file", str(work / "sequence.json"),
+        "--ref_schema_out_file", str(work / "sequence_ref.json"),
+        *(["--plots_dir", str(work / "plots")] if plots else [])], seconds)
+    seq_ate = json.loads((work / "sequence.json").read_text())[
+        "indiv_trajectory_metrics"][0]["rmse_transl_err"]
+    ref_ate = schema.read_metrics_file(str(work / "sequence_ref.json"))[0]["ate"].rmse_transl_err
+    _tool("compute_metrics_for_approach", compute_metrics_for_approach, [
+        "--single_trajectory_eval_base_name", "s",
+        "--comparison_alg_traj_est_dir", str(work / "est"),
+        "--interpolated_gt_traj_dir", str(work / "gt"),
+        "--metrics_out_file", str(work / "approach.json")], seconds)
+    approach_ate = schema.read_metrics_file(str(work / "approach.json"))[0]["ate"].rmse_transl_err
+    for label, value in (("sequence", seq_ate), ("sequence reference schema", ref_ate),
+                         ("approach", approach_ate)):
+        if not abs(value - ate_mem) <= 1e-9:
+            raise AssertionError(f"tools: {label} ATE {value!r} vs in memory {ate_mem!r}")
+    _tool("timing_analysis", timing_analysis, [str(results / "timing.json")], seconds)
+    _tool("display_ltm", display_ltm, [str(results / "ltm.json"), "--covariances"], seconds)
+    if plots:
+        _tool("iteration_plotter", iteration_plotter, [
+            "--logs_directory", str(results / "logs"), "--plots_dir", str(work / "iterations")],
+            seconds)
+        drawn = sorted(p.name for d in ("plots", "iterations") for p in (work / d).glob("*.png"))
+        print(f"tools: plots drawn {drawn}")
+    print(f"tools (in process, on the object session's files): aligned ATE {ate_mem:.9f} m in "
+          f"memory, {seq_ate:.9f} (sequence), {approach_ate:.9f} (approach); "
+          f"{len(kept)} of {n} frames kept by the sparsifier; host seconds "
+          + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items()))
+
+
+def start_pipeline(tmp):
+    """The one-session pipeline's session exported into ``tmp`` and its
+    ``single_trajectory_estimator`` started in a process group of its own:
+    (process, stdout file, stderr file), the directory, the ground truth
+    and the initial poses."""
+    from obvi_slam_tpu_torch.synthetic import export_session_files
+
+    data, gt, _ = ot.synthetic_session(**PIPELINE)
+    d = export_session_files(data, gt, Path(tmp) / "pipeline")
+    (d / "orb_out" / "poses").mkdir()
+    (d / "orb_out" / "poses" / "initial_robot_poses_by_node.txt").write_bytes(
+        (d / "poses.csv").read_bytes())
+    ot.config.write_config(ot.config.FullOVSLAMConfig(), str(d / "config.json"))
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "obvi_slam_tpu_torch.cli.single_trajectory_estimator",
+         "--params_config_file", str(d / "config.json"),
+         "--intrinsics_file", str(d / "intrinsics.csv"),
+         "--extrinsics_file", str(d / "extrinsics.csv"), "--orb_out_dir", str(d / "orb_out"),
+         "--output_dir", str(d / "out"), "--sparsify",
+         "--max_pose_inc_threshold_transl", str(PIPELINE_TRANSL), "--device", DEVICE],
+        stdout=out, stderr=err, cwd=str(REPO), start_new_session=True)
+    return (proc, out, err), d, gt, data.initial_poses, time.perf_counter()
+
+
+def check_pipeline(worker, d, gt, initial, t_start):
+    """Joins the pipeline's process; its ATE against the ground truth of
+    the frames the sparsifier kept must be below half the odometry's, and
+    every output must read back."""
+    from obvi_slam_tpu_torch import io as pio
+    from obvi_slam_tpu_torch.cli.orb_trajectory_sparsifier import get_sparsified_frames
+
+    proc, out, err = worker
+    try:
+        rc = proc.wait(timeout=PIPELINE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc = "timeout"
+    out.seek(0)
+    err.seek(0)
+    if rc != 0:
+        raise RuntimeError(f"pipeline: exit code {rc}\n{out.read()[-2000:]}\n{err.read()[-6000:]}")
+    wall = time.perf_counter() - t_start
+    res = d / "out"
+    mapping = get_sparsified_frames(initial, PIPELINE_TRANSL, 0.1, set())
+    sparse = pio.read_poses_by_node_id(str(res / "sparsified_poses.csv"))
+    poses = pio.read_poses_by_node_id(str(res / "robot_poses.csv"))
+    if sorted(mapping.values()) != sorted(sparse) or sorted(poses) != sorted(sparse):
+        raise AssertionError(f"pipeline: {len(mapping)} frames kept, {len(sparse)} in the "
+                             f"sparsified poses, {len(poses)} estimated")
+    old = sorted(mapping, key=mapping.get)
+    kept_gt = gt[old]
+    ate = _ate(poses, kept_gt)
+    odom = _ate({mapping[f]: initial[f] for f in old}, kept_gt)
+    n_features = len((res / "features.csv").read_text().strip().splitlines()) - 1
+    ltm = ot.LongTermObjectMap.load(str(res / "long_term_map.json"))
+    timing = json.loads((res / "timing.json").read_text())
+    rows = (res / "ceres_opt_summary.csv").read_text().strip().splitlines()[1:]
+    ellipsoids = (res / "ellipsoids.csv").read_text().splitlines()
+    if not (ate < 0.5 * odom and n_features > 0 and rows and ellipsoids
+            and "offline_runner_online_portion" in timing
+            and (res / "checkpoints" / "pose_graph_state.json").exists()):
+        raise AssertionError(f"pipeline: ATE {ate:.6f} m (odometry {odom:.6f} m), "
+                             f"{n_features} features, {len(rows)} solves")
+    print(f"pipeline (single_trajectory_estimator --sparsify --device {DEVICE}, a process "
+          f"of its own): {len(poses)} of {PIPELINE['n_frames']} frames kept at "
+          f"{PIPELINE_TRANSL} m; ATE {ate:.6f} m (odometry {odom:.6f} m); {len(rows)} solves, "
+          f"{n_features} features, {len(ltm.ellipsoids)} map objects; online portion "
+          f"{timing['offline_runner_online_portion']['total_s']:.4f} s; joined "
+          f"{wall:.1f} s after its start")
+
+
+def frontend_rank(rank, world, port, out_dir):
+    """The body of a rank of the frontend phase: joins the gloo group at
+    localhost:``port``, runs the session exported in ``out_dir/files``
+    through the main entry point's ``build_session`` and ``run_session``
+    with ``--shard_devices world`` (the global-BA solves sharded, the
+    frontend's estimates from rank 0), extracts the long-term map with
+    deterministic algorithms, and saves its pose graph, map and frontend
+    differences to ``out_dir/rank<r>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    preconditions()
+    torch.set_num_threads(1)
+    rank, world = int(rank), int(world)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT_S))
+    cli_main.parallel.initialize_distributed = lambda **kwargs: True  # joined above
+    files = Path(out_dir) / "files"
+    # The parser alone: parse_args refuses more ranks than CUDA devices,
+    # and these ranks share the one card over gloo.
+    args = cli_main.build_parser().parse_args(
+        object_argv(files, "--shard_devices", str(world)))
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    session = cli_main.build_session(args)
+    if not cli_main.run_session(session):
+        raise AssertionError(f"frontend rank {rank}: run_optimization returned False")
+    wall = time.perf_counter() - t0
+    launches = ops.kernel_launches()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ltm = ot.extract_long_term_object_map(
+        session.pg, session.config, session.bb_frontend.get_front_end_obj_map_data(),
+        caps=session.runner.caps_pool("global"), device=DEVICE)
+    torch.use_deterministic_algorithms(False)
+    fe = session.bb_frontend
+    result = dict(state=session.pg.get_state(), ltm=None if ltm is None else ltm.to_json(),
+                  differences=fe.rank_differences,
+                  pending=[None if p.object_estimate is None else p.object_estimate.tolist()
+                           for p in fe.pending],
+                  log=[(r.frame_id, r.phase, r.final_cost, r.iterations)
+                       for r in session.runner.opt_log])
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(result))
+    dist.destroy_process_group()
+    print(json.dumps(dict(wall=wall, launches=launches, objects=len(session.pg.objects))))
+
+
+def start_frontend_ranks(tmp, command=None):
+    """The frontend phase's session written into ``tmp/frontend_ranks`` and
+    its two rank processes started on the card: [(process, stdout file,
+    stderr file)], the directory."""
+    import socket
+
+    from obvi_slam_tpu_torch.synthetic import export_session_files
+
+    out_dir = Path(tmp) / "frontend_ranks"
+    data, gt, _ = ot.synthetic_object_session(**FRONTEND_RANKS)
+    d = export_session_files(data, gt, out_dir / "files")
+    config = ot.config.FullOVSLAMConfig()
+    mean, std = CHAIR_PRIOR
+    config.shape_dimension_priors = [ot.config.ShapeDimensionPrior(
+        "chair", np.array(mean), np.diag(np.array(std) ** 2))]
+    ot.config.write_config(config, str(d / "config.json"))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    command = command or [sys.executable, str(Path(__file__).resolve())]
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    ranks = []
+    for r in range(2):
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        ranks.append((subprocess.Popen(
+            command + [FRONTEND_RANK_ARG, str(r), "2", str(port), str(out_dir)],
+            stdout=out, stderr=err, cwd=str(REPO), env=env), out, err))
+    return ranks, out_dir, time.perf_counter()
+
+
+def check_frontend_ranks(ranks, out_dir, t_start):
+    """Joins the frontend ranks: their pose graphs, long-term maps, pending
+    estimates and solve logs equal bit for bit, at least
+    FRONTEND_MIN_OBJECTS chairs initialised, the frontend's broadcasts made;
+    prints the broadcasts and the largest difference rank 1's estimates had
+    from rank 0's before them."""
+    deadline = time.perf_counter() + SHARDED_TIMEOUT_S
+    while any(p.poll() is None for p, _, _ in ranks):
+        if time.perf_counter() > deadline or any(p.poll() for p, _, _ in ranks):
+            break
+        time.sleep(0.5)
+    time.sleep(1.0)
+    stop_session_processes({r: w for r, w in enumerate(ranks)})
+    summaries = []
+    for r, (proc, out, err) in enumerate(ranks):
+        out.seek(0)
+        err.seek(0)
+        text = out.read()
+        if proc.returncode != 0:
+            raise RuntimeError(f"frontend rank {r}: exit code {proc.returncode}\n"
+                               f"{text[-3000:]}\n{err.read()[-6000:]}")
+        summaries.append(json.loads(text.strip().splitlines()[-1]))
+    r0, r1 = (json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(2))
+    for key in ("state", "ltm", "pending", "log"):
+        if r0[key] != r1[key]:
+            raise AssertionError(f"frontend ranks: the ranks' {key} differ")
+    n_objects = len(r0["state"]["objects"])
+    if n_objects < FRONTEND_MIN_OBJECTS or r0["ltm"] is None or not r0["differences"]:
+        raise AssertionError(f"frontend ranks: {n_objects} objects, LTM "
+                             f"{r0['ltm'] is not None}, {len(r0['differences'])} broadcasts")
+    for r, summary in enumerate(summaries):
+        if not all(summary["launches"][k] for k in OBJECTS_KERNELS):
+            raise AssertionError(f"frontend rank {r}: launches {summary['launches']}")
+    if any(r0["differences"]):
+        raise AssertionError("frontend ranks: rank 0 differed from itself")
+    diffs = r1["differences"]
+    print(f"frontend ranks ({FRONTEND_RANKS['n_frames']} frames, {n_objects} objects, 2 gloo "
+          f"ranks on the one card through the main entry point with --shard_devices 2): pose "
+          f"graphs, LTM ({len(r0['ltm']['ellipsoids'])} objects), pending estimates and solve "
+          f"logs equal bit for bit; {len(diffs)} frontend broadcasts; rank 1's estimates before "
+          f"them differed from rank 0's in {sum(d > 0 for d in diffs)}, by at most "
+          f"{max(diffs):.3e}; session wall {summaries[0]['wall']:.2f} s, launches "
+          f"{summaries[0]['launches']}; joined {time.perf_counter() - t_start:.1f} s after "
+          "its start")
+
+
+def flops_phase(device_ms):
+    """The FLOP model of one LM iteration (``flops.lm_iteration_flops``, the
+    reference's model of the step) of each FLOPS_PHASES problem beside its
+    device ms per LM iteration from ``profile_phase``: per-phase flops and
+    time at the f32 peak, the dominant phase, the modelled fraction."""
+    from obvi_slam_tpu_torch import flops
+
+    for label in FLOPS_PHASES:
+        state, _, _, tables, plan = phase_problem(label, np.float32)[:5]
+        n_pose, n_point, n_obj = (int(x.shape[0]) for x in state)
+        phases = flops.lm_iteration_flops(tables, plan, n_pose, n_point, n_obj)
+        ms = device_ms.get(label)
+        table = flops.speed_of_light_table(phases, None if not ms else ms * 1e-3)
+        top = max(phases, key=lambda k: phases[k]["flops_f32"])
+        print(f"flops {label} ({n_pose} x {n_point} x {n_obj}, the reference's model of the "
+              "step): " + "; ".join(f"{k} {v['flops_f32']:.4e} ({v['sol_us']:.3f} us)"
+                                    for k, v in table["phases"].items()))
+        fraction = table.get("sol_fraction")
+        print(f"flops {label}: total {table['total_flops_f32']:.4e} flop, "
+              f"{table['total_sol_us']:.3f} us at {flops.PEAK_F32_FLOPS:.3g} flop/s; dominant "
+              f"{top} ({phases[top]['flops_f32'] / table['total_flops_f32']:.4f} of the "
+              f"model); measured device time {ms if ms else float('nan'):.3f} ms per LM "
+              f"iteration, modelled fraction "
+              f"{'not measured' if fraction is None else f'{fraction:.4f}'}")
 
 
 def main():
@@ -2567,6 +3040,10 @@ def main():
         print(f"[{time.perf_counter() - t_start:.1f} s] synthetic phases done")
         sharded_launches = join_sharded_ranks(sharded, sharded_dir, t_sharded)
         print(f"[{time.perf_counter() - t_start:.1f} s] sharded phase done")
+        pipeline = start_pipeline(tmp.name)
+        workers["pipeline"] = pipeline[0]
+        frontend = start_frontend_ranks(tmp.name)
+        workers.update({f"frontend rank {r}": w for r, w in enumerate(frontend[0])})
         session = session_phase()
         errs["syrk"] = max(errs["syrk"], check_session_gram(session["syrk_operand"]))
         errs["reproj"] = max(errs["reproj"], check_session_reproj(*session["reproj_operands"]))
@@ -2581,15 +3058,21 @@ def main():
             objects["window"], objects["mini"], objects["mini_reproj"])
         errs["bbox"] = max(errs["bbox"], bbox_err)
         errs["reproj"] = max(errs["reproj"], reproj_err)
+        visualize_phase(tmp.name, objects)
+        tools_phase(tmp.name, exported["objects"], objects)
+        print(f"[{time.perf_counter() - t_start:.1f} s] visualize and tools phases done")
         rows = time_kernels(errs, phases, gram_ops, session, objects)
         print(f"[{time.perf_counter() - t_start:.1f} s] kernel timings done")
-        for label, ph in phases.items():
-            profile_phase(label, ph)
+        device_ms = {label: profile_phase(label, ph) for label, ph in phases.items()}
         profile_session(session["run"])
         profile_objects(objects["run"])
         print(f"[{time.perf_counter() - t_start:.1f} s] profiles done")
+        flops_phase(device_ms)
+        check_frontend_ranks(*frontend)
+        check_pipeline(*pipeline)
+        print(f"[{time.perf_counter() - t_start:.1f} s] frontend ranks and pipeline joined")
         check_session_processes(join_session_processes(
-            {k: v for k, v in workers.items() if not k.startswith("sharded")}), session, objects)
+            {k: workers[k] for k in ("session", "objects", "second")}), session, objects)
         for row in rows:
             row["sharded_launches"] = {key: [x[row["name"]] for x in per_rank]
                                        for key, per_rank in sharded_launches.items()}
@@ -2614,5 +3097,7 @@ if __name__ == "__main__":
         session_process(*sys.argv[2:])
     elif len(sys.argv) >= 3 and sys.argv[1] == SHARDED_RANK_ARG:
         sharded_rank(*sys.argv[2:])
+    elif len(sys.argv) >= 3 and sys.argv[1] == FRONTEND_RANK_ARG:
+        frontend_rank(*sys.argv[2:])
     else:
         main()

@@ -17,9 +17,12 @@ file formats and names:
 
 Every flag of the reference package's CLI is accepted with its meaning,
 except that ``--platform`` is ``--device`` (a torch device, default
-``cuda``; with no card the run fails, it never falls back to the CPU) and
-``--debug_images_output_directory`` needs ``visualization.py``, not ported
-yet: it exits with a message. ``--f64`` runs f64 tables (else f32).
+``cuda``; with no card the run fails, it never falls back to the CPU).
+``--f64`` runs f64 tables (else f32). ``--debug_images_output_directory``
+writes one bounding-box-association image per (frame, camera) after each
+optimization (``visualization.SaveToFileVisualizer``, its overlays computed
+on ``--device``); it needs PIL (Pillow) and exits with a message without
+it.
 
 ``--shard_devices N`` (N > 1) shards the global-BA solves over N ranks
 (``parallel``; ``--shard_local_ba`` the window solves too): one process per
@@ -28,8 +31,9 @@ alone, the entry point launches the N ranks itself (this module again,
 with ``COORDINATOR_ADDRESS``, ``NUM_PROCESSES`` and ``PROCESS_ID`` set at a
 free localhost port) and returns the first non-zero exit code of theirs;
 started with those variables set (by that launch, or by a launcher of the
-user's on several hosts), it is one rank. Every rank runs the session;
-rank 0 writes the outputs. ``--fused_solver off`` takes the runner's host-loop
+user's on several hosts), it is one rank. Every rank runs the session, and
+the bounding-box frontend takes rank 0's pending-object estimates; rank 0
+writes the outputs. ``--fused_solver off`` takes the runner's host-loop
 two-phase branch; ``auto`` and ``on`` its fused one.
 
 The session is built, run and written by ``build_session``, ``run_session``
@@ -80,8 +84,6 @@ OPT_LOG_HEADER = (
     "frame_id,global_ba,phase,attempt,num_poses,num_features,num_objects,initial_cost,"
     "final_cost,iterations,termination"
 )
-# Flags whose module is not ported yet: (flag, module).
-UNPORTED = (("--debug_images_output_directory", "visualization.py"),)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -123,8 +125,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--images_dir", default="",
                         help="frame images as <images_dir>/<camera_id>/<frame_id>.png")
-    parser.add_argument("--debug_images_output_directory", default="",
-                        help="not ported (visualization.py): exits with a message")
+    parser.add_argument(
+        "--debug_images_output_directory", default="",
+        help="write a bounding-box association image per (frame, camera) here (needs PIL)")
     parser.add_argument(
         "--fused_solver", choices=("auto", "on", "off"), default="auto",
         help="two-phase windows as one solve_two_phase call (auto, on) or the host "
@@ -136,14 +139,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The parsed flags; exits with a message on a flag whose module is not
-    ported."""
+    """The parsed flags; exits with a message on a flag whose package is
+    missing."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    given = {"--debug_images_output_directory": bool(args.debug_images_output_directory)}
-    for flag, module in UNPORTED:
-        if given[flag]:
-            parser.error(f"{flag} needs {module}, which obvi_slam_tpu_torch does not port yet")
+    if args.debug_images_output_directory:
+        try:
+            import PIL  # noqa: F401
+        except ImportError:
+            parser.error("--debug_images_output_directory needs the PIL package (Pillow), "
+                         "which is not installed")
     if args.detector_command and not args.images_dir:
         parser.error("--detector_command requires --images_dir")
     if args.shard_devices > 1:
@@ -230,6 +235,16 @@ def build_session(args: argparse.Namespace, *, plain: bool = False) -> Session:
         len(data.bounding_boxes),
     )
 
+    mesh = None
+    if args.shard_devices > 1:
+        parallel.initialize_distributed(device=args.device)
+        mesh = parallel.make_mesh(device=args.device)
+        if mesh.device.type == "cpu":
+            # Ranks on one host share its cores.
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.size))
+        if mesh.size != args.shard_devices:
+            raise SystemExit(f"--shard_devices {args.shard_devices}: the process group has "
+                             f"{mesh.size} ranks")
     pg = PoseGraph(data.cameras, cfg.shape_prior_map(config))
     if prev_ltm is not None:
         seed_pose_graph_from_ltm(pg, prev_ltm)
@@ -241,7 +256,7 @@ def build_session(args: argparse.Namespace, *, plain: bool = False) -> Session:
         config.geometric_similarity_scorer_params,
         img_heights_and_widths=img_hw,
         ltm_front_end_data=prev_ltm.front_end_data if prev_ltm else None,
-        dtype=dtype, device=args.device, plain=plain,
+        dtype=dtype, device=args.device, plain=plain, mesh=mesh,
     )
     hooks = RunnerHooks(
         bb_frontend=make_bb_frontend_hook(bb_frontend) if data.bounding_boxes else None
@@ -265,6 +280,30 @@ def build_session(args: argparse.Namespace, *, plain: bool = False) -> Session:
         hooks.bb_frontend = make_bb_frontend_hook_with_querier(
             bb_frontend, querier, sorted(intrinsics)
         )
+    if args.debug_images_output_directory:
+        from obvi_slam_tpu_torch.visualization import (
+            SaveToFileVisualizer,
+            SaveToFileVisualizerConfig,
+        )
+
+        # Both knobs come from feature_based_bb_association_params, as in
+        # the reference's wiring (offline_object_visual_slam_main.cpp:823-832).
+        fe_params = config.feature_based_bb_association_params
+        visualizer = SaveToFileVisualizer(
+            args.debug_images_output_directory,
+            SaveToFileVisualizerConfig(
+                feature_validity_window=fe_params.feature_validity_window,
+                bounding_box_inflation_size=fe_params.bounding_box_inflation_size,
+            ),
+            img_heights_and_widths=img_hw, device=args.device,
+        )
+
+        def visualize(p, stage, frame_id):
+            # On a mesh the ranks' pose graphs are equal: rank 0 draws.
+            if stage == "AFTER_EACH_OPTIMIZATION" and (mesh is None or mesh.rank == 0):
+                visualizer.bounding_box_front_end_visualization(p, bb_frontend, frame_id)
+
+        hooks.visualization = visualize
     if args.checkpoint_output_dir:
         os.makedirs(args.checkpoint_output_dir, exist_ok=True)
 
@@ -283,16 +322,6 @@ def build_session(args: argparse.Namespace, *, plain: bool = False) -> Session:
         merge_objects_by_center_proximity(p, merge.max_merge_distance, merge.x_y_only_merge),
         bb_frontend,
     )
-    mesh = None
-    if args.shard_devices > 1:
-        parallel.initialize_distributed(device=args.device)
-        mesh = parallel.make_mesh(device=args.device)
-        if mesh.device.type == "cpu":
-            # Ranks on one host share its cores.
-            torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.size))
-        if mesh.size != args.shard_devices:
-            raise SystemExit(f"--shard_devices {args.shard_devices}: the process group has "
-                             f"{mesh.size} ranks")
     runner = OfflineProblemRunner(
         config, hooks, dtype=dtype, device=args.device, plain=plain, mesh=mesh,
         shard_local_ba=args.shard_local_ba,

@@ -23,6 +23,14 @@ dummy point state and no reprojection rows, at the sizes of the pending set
 (the reference's capacity buckets exist for its jit signature; padding rows
 do not change the result).
 
+With a ``mesh`` (the runner's, ``parallel.make_mesh``) every rank runs the
+frontend, and rank 0's mini-BA estimates, with the flags derived from them,
+replace every rank's before any decision reads them: one broadcast after
+the refinement and one after the initialization checks, per call. Without
+it the ranks' mini-BAs could end apart in their last bits on the card
+(``index_add_`` sums in a varying order), decide merges or initialisations
+differently and then build different problems.
+
 Cross-session note: for the feature-based frontend the LTM appearance payload
 is empty, so LTM objects re-associate geometrically via the merge path.
 """
@@ -42,6 +50,7 @@ from obvi_slam_tpu_torch import optlog
 from obvi_slam_tpu_torch import types as T
 from obvi_slam_tpu_torch.frontend.visual_features import _pose_to_rt
 from obvi_slam_tpu_torch.offline_data import RawBoundingBox
+from obvi_slam_tpu_torch.parallel import comm
 from obvi_slam_tpu_torch.pose_graph import PoseGraph
 from obvi_slam_tpu_torch.solver import HuberParams, build_schur_plan_host, solve
 from obvi_slam_tpu_torch.solver.problem import camera_bundle_from_pose_graph
@@ -151,9 +160,11 @@ class FeatureBasedBoundingBoxFrontEnd:
         dtype=np.float64,
         device="cuda",
         plain: bool = False,
+        mesh=None,
     ):
         """``dtype``, ``device`` and ``plain`` are those of the pending
-        mini-BA (``plain``: the kernels' plain versions, reference runs)."""
+        mini-BA (``plain``: the kernels' plain versions, reference runs);
+        ``mesh``: the runner's, whose rank 0 decides the estimates."""
         self.pg = pg
         self.params = association_params
         self.cov_params = cov_gen_params
@@ -162,6 +173,10 @@ class FeatureBasedBoundingBoxFrontEnd:
         self.dtype = dtype
         self.device = device
         self.plain = plain
+        self.mesh = mesh
+        # Per broadcast from rank 0: the largest difference this rank's
+        # values had from rank 0's before it.
+        self.rank_differences: List[float] = []
 
         self.pending: List[PendingObject] = []
         # obj_id -> frame -> cam -> set(feature_ids)
@@ -256,14 +271,29 @@ class FeatureBasedBoundingBoxFrontEnd:
         existing_associated = {
             assoc[1] for assoc in assignments if assoc[0] == "object"
         }
-        self._refine_pending_estimates(assigned_pending)
+        targets = self._refine_pending_estimates(assigned_pending)
+        if self.mesh is not None and targets:
+            rows = self._from_rank0(np.array([
+                np.append(self.pending[i].object_estimate, self.pending[i].ready_for_merge)
+                for i in targets]))
+            for i, row in zip(targets, rows):
+                self.pending[i].object_estimate = row[:7].copy()
+                self.pending[i].ready_for_merge = bool(row[7])
 
         # --- initialize / merge / create ----------------------------------
         mergable: Dict[int, Tuple[int, np.ndarray]] = {}
+        statuses = []
         for pend_idx in assigned_pending:
             if pend_idx >= len(self.pending):
                 continue
             status, est = self._try_initialize(self.pending[pend_idx])
+            statuses.append((pend_idx, status, est))
+        if self.mesh is not None and statuses:
+            rows = self._from_rank0(np.array([
+                np.concatenate([[i, status], np.full(7, np.nan) if est is None else est])
+                for i, status, est in statuses]))
+            statuses = [(int(r[0]), int(r[1]), r[2:].copy()) for r in rows]
+        for pend_idx, status, est in statuses:
             if status in (ENOUGH_VIEWS_FOR_MERGE, SUFFICIENT_VIEWS_FOR_NEW):
                 mergable[pend_idx] = (status, est)
 
@@ -294,6 +324,16 @@ class FeatureBasedBoundingBoxFrontEnd:
             del self.pending[idx]
 
         self._cleanup(frame_id)
+
+    def _from_rank0(self, rows: np.ndarray) -> np.ndarray:
+        """Rank 0's ``rows`` (f64) on every rank, in one broadcast; notes
+        how far this rank's own were from them (NaN equal to NaN)."""
+        local = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.float64))
+        agreed = comm.broadcast(local.to(self.mesh.device), self.mesh).cpu().numpy()
+        diff = np.abs(agreed - rows)
+        diff[np.isnan(agreed) & np.isnan(rows)] = 0.0
+        self.rank_differences.append(float(np.max(np.nan_to_num(diff, nan=np.inf))))
+        return agreed
 
     # ------------------------------------------------------------------
     def _make_bb_context(self, frame_id, camera_id, bb, observed_features):
@@ -378,7 +418,8 @@ class FeatureBasedBoundingBoxFrontEnd:
     def _refine_pending_estimates(self, assigned_pending: Set[int]):
         """refineInitialEstimateForPendingObjects (pending_object_estimator.cpp:19-151):
         mini-BA over pending ellipsoids (bbox + shape prior, poses constant)
-        on the shared LM solver; then update ready_for_merge."""
+        on the shared LM solver; then update ready_for_merge. Returns the
+        pending indices it refined."""
         # Estimate set: assigned-this-round with an estimate + others ready.
         targets = []
         for idx in sorted(assigned_pending):
@@ -401,6 +442,7 @@ class FeatureBasedBoundingBoxFrontEnd:
                 >= self.params.required_min_conf_for_initialization
                 and pend.object_estimate is not None
             )
+        return targets
 
     def _run_pending_mini_ba(self, targets: List[int]):
         """One LM solve over the target pending ellipsoids: bounding-box

@@ -88,6 +88,7 @@ class RoshanBbFrontEnd(FeatureBasedBoundingBoxFrontEnd):
         dtype=np.float64,
         device="cuda",
         plain: bool = False,
+        mesh=None,
     ):
         # Map Roshan params onto the shared pipeline's association params
         # (min_observations / discard / confidence gates are shared concepts).
@@ -114,6 +115,7 @@ class RoshanBbFrontEnd(FeatureBasedBoundingBoxFrontEnd):
             dtype,
             device,
             plain,
+            mesh,
         )
         self.max_assoc_distance = roshan_params.get(
             "max_distance_for_associated_ellipsoids", 3.5

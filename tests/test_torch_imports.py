@@ -1,6 +1,6 @@
 """obvi_slam_tpu_torch and every submodule import with jax, jaxlib, the JAX
-package and matplotlib blocked, and the main CLI's --help runs so (checked
-in a fresh interpreter: this one has imported jax already)."""
+package, matplotlib, PIL and yaml blocked, and the main CLI's --help runs so
+(checked in a fresh interpreter: this one has imported jax already)."""
 
 import os
 import subprocess
@@ -18,7 +18,9 @@ _SCRIPT = textwrap.dedent(
     """
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "obvi_slam_tpu", "matplotlib")
+    CLIS = {clis!r}
+
+    BLOCKED = ("jax", "jaxlib", "obvi_slam_tpu", "matplotlib", "PIL", "yaml")
 
     def blocked(name):
         return name.split(".")[0] in BLOCKED
@@ -47,7 +49,9 @@ _SCRIPT = textwrap.dedent(
                  "obvi_slam_tpu_torch.factors.epipolar",
                  "obvi_slam_tpu_torch.parallel", "obvi_slam_tpu_torch.parallel.audit",
                  "obvi_slam_tpu_torch.parallel.comm", "obvi_slam_tpu_torch.parallel.sharding",
-                 "obvi_slam_tpu_torch.parallel.distributed"):
+                 "obvi_slam_tpu_torch.parallel.distributed",
+                 "obvi_slam_tpu_torch.visualization", "obvi_slam_tpu_torch.flops",
+                 *("obvi_slam_tpu_torch.cli." + cli for cli in CLIS)):
         assert name in names or name in sys.modules, name
     from obvi_slam_tpu_torch.cli import offline_object_visual_slam_main
     try:
@@ -60,10 +64,15 @@ _SCRIPT = textwrap.dedent(
 )
 
 
+# The JAX package's repo-root entry points, each with a counterpart at
+# obvi_slam_tpu_torch/cli/<name>.py.
+CLIS = sorted(p.stem for p in (REPO / "cli").glob("*.py"))
+
+
 def test_port_imports_without_jax():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run(
-        [sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+        [sys.executable, "-c", _SCRIPT.replace("{clis!r}", repr(CLIS))], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr

@@ -157,13 +157,18 @@ def test_synthetic_session_equals_make_session():
             np.testing.assert_array_equal(ours[k], theirs[k])
 
 
-def test_unported_options_raise(capsys):
+def test_unported_options_raise(capsys, monkeypatch):
     """A runner mesh that is not a parallel.Mesh of an initialized process
     group raises (the multi-rank runner: tests/test_torch_parallel_runner.py;
     PGO on global BA: tests/test_torch_pgo.py; the host-loop two-phase
-    branch: tests/test_torch_cli.py), and the CLI's flag that needs a module
-    not ported yet exits non-zero with a message naming the module."""
+    branch: tests/test_torch_cli.py), and the CLI's flag whose package is
+    missing (the debug images without PIL) exits non-zero with a message
+    naming the package: every module is ported, none is skipped silently."""
+    import sys
+
     from obvi_slam_tpu_torch.cli import offline_object_visual_slam_main as main_cli
+
+    monkeypatch.setitem(sys.modules, "PIL", None)  # PIL not installed
 
     c = small_config(ot.config)
     with pytest.raises(TypeError):
@@ -172,7 +177,7 @@ def test_unported_options_raise(capsys):
     for flag in ("--params_config_file", "--intrinsics_file", "--extrinsics_file",
                  "--poses_by_node_id_file", "--low_level_feats_dir"):
         inputs += [flag, "unused"]
-    for extra, module in ((["--debug_images_output_directory", "dbg"], "visualization.py"),):
+    for extra, module in ((["--debug_images_output_directory", "dbg"], "PIL"),):
         with pytest.raises(SystemExit) as exit_info:
             main_cli.main(inputs + ["--device", "cpu"] + extra)
         assert exit_info.value.code != 0

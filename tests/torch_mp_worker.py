@@ -91,7 +91,75 @@ def job_runner(mesh, inputs):
                 checkpoints=checkpoints)
 
 
-JOBS = {"dd_solve": job_dd_solve, "step": job_step, "runner": job_runner}
+def perturb_mini_ba(delta):
+    """Adds ``delta`` to every object that the frontend's pending-object
+    mini-BA returns in this process."""
+    from obvi_slam_tpu_torch.frontend import bounding_box_frontend as bbf
+
+    inner = bbf.solve
+
+    def solve(*args, **kwargs):
+        state, summary = inner(*args, **kwargs)
+        return state._replace(objects=state.objects + delta), summary
+
+    bbf.solve = solve
+
+
+def frontend_run(inputs, mesh=None):
+    """The bounding-box frontend alone over ``inputs["session"]``'s object
+    session, every frame at its ground-truth pose (no runner), its mini-BA
+    estimates decided on ``mesh``'s rank 0 when given."""
+    import obvi_slam_tpu_torch as ot
+    from obvi_slam_tpu_torch.frontend import FeatureBasedBoundingBoxFrontEnd, make_bb_frontend_hook
+
+    data, gt, _ = ot.synthetic_object_session(**inputs["session"])
+    config = ot.config.read_config(inputs["config"])
+    pg = ot.PoseGraph(data.cameras, ot.config.shape_prior_map(config))
+    fe = FeatureBasedBoundingBoxFrontEnd(
+        pg, config.feature_based_bb_association_params,
+        config.bounding_box_covariance_generator_params,
+        config.geometric_similarity_scorer_params, img_heights_and_widths={1: (480.0, 640.0)},
+        device="cpu", mesh=mesh)
+    hook = make_bb_frontend_hook(fe)
+    for frame in range(len(gt)):
+        pg.add_frame(frame, gt[frame])
+        hook(data, pg, frame)
+    return dict(objects={o: n.ellipsoid for o, n in pg.objects.items()},
+                observations=[(f.object_id, f.frame_id) for f in pg.object_observations],
+                pending=[p.object_estimate for p in fe.pending],
+                differences=list(fe.rank_differences))
+
+
+def job_frontend(mesh, inputs):
+    """``frontend_run`` with rank 1's mini-BA results perturbed by
+    ``inputs["perturb"]``, on the mesh unless ``inputs["agree"]`` is
+    False."""
+    if mesh.rank == 1:
+        perturb_mini_ba(inputs["perturb"])
+    return frontend_run(inputs, mesh if inputs["agree"] else None)
+
+
+def job_frontend_session(mesh, inputs):
+    """The main CLI's session on ``inputs["argv"]`` (which holds
+    ``--shard_devices``), built by its ``build_session`` on this process
+    group, with rank 1's mini-BA results perturbed by
+    ``inputs["perturb"]``."""
+    from obvi_slam_tpu_torch.cli import offline_object_visual_slam_main as cli_main
+
+    cli_main.parallel.initialize_distributed = lambda **kwargs: True  # joined already
+    if mesh.rank == 1:
+        perturb_mini_ba(inputs["perturb"])
+    session = cli_main.build_session(cli_main.parse_args(inputs["argv"]))
+    assert cli_main.run_session(session)
+    return dict(state=session.pg.get_state(),
+                pending=[p.object_estimate for p in session.bb_frontend.pending],
+                differences=list(session.bb_frontend.rank_differences),
+                opt_log=[(r.frame_id, r.phase, r.final_cost, r.iterations)
+                         for r in session.runner.opt_log])
+
+
+JOBS = {"dd_solve": job_dd_solve, "step": job_step, "runner": job_runner,
+        "frontend": job_frontend, "frontend_session": job_frontend_session}
 
 
 def main(job, rank, n, port, out):
