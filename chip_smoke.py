@@ -25,7 +25,7 @@ at 1,024 poses (cyclic reduction) and at 256 poses with the gate forced on
 (the sequential tile loop), and one f64 step of the 1,024-pose problem
 relabelled out and back (``out_and_back``: a loop closure, solved by pair
 enumeration) against its banded step mapped back through the permutation.
-Then it drives the main path, seven phases, each with the launch counts
+Then it drives the main path, eight phases, each with the launch counts
 (and the Schur path counts, ``schur.path_counts``) reset just before it:
 
   - ``global``: the two-phase global bundle adjustment of 256 poses x 4096
@@ -53,7 +53,23 @@ Then it drives the main path, seven phases, each with the launch counts
 
 each checked against an f64 run of the plain versions (phase 2 with the f32
 run's outlier selection) and against an f64 run that selects its own,
-whose selection may differ in at most 5% of the excluded factors; and
+whose selection may differ in at most 5% of the excluded factors. These
+phases time the host LM loop (``solve_two_phase``). The ``fused`` phase
+then runs each of the five problems through ``solve_two_phase_fused``,
+the path the runner takes on the card: each LM iteration a replay of a
+CUDA graph captured over static buffers, the running flag read once per
+chunk of ``lm_fused.CHUNK`` iterations. In f64 under deterministic
+algorithms the graph path must end as the eager host loop does (the same
+termination, iteration counts within 1, final states within 1e-9), both
+where it builds its graphs and where it replays them; in f32 through the
+kernels it meets the synthetic phases' gates (every kernel launched,
+counted per replay from its capture; the Schur paths of every step; the
+final costs within 1e-3 of the f64 plain run with its factor selection).
+It prints LM it/s both ways, the host's launches per LM iteration (eager:
+every device operation; graph path: graph replays), the busy share, the
+captures and ms per capture, and fixed 20-iteration rates at 1 and 4
+iterations per flag read. The sessions below run on the graph path, the
+runner's default on the card, and print their captures; and
 
   - ``session``: ``OfflineProblemRunner.run_optimization`` on a 64-frame
     visual-only stereo session (``synthetic_session``) at the reference's
@@ -168,6 +184,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
+# cuBLAS is deterministic only with this workspace setting, which must be in
+# place before its first use (fused_phase runs deterministic algorithms).
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -193,8 +212,11 @@ from obvi_slam_tpu_torch.solver import (  # noqa: E402
     TwoPhaseAux,
     TwoPhaseConfig,
     solve,
+    solve_fused,
     solve_two_phase,
+    solve_two_phase_fused,
 )
+from obvi_slam_tpu_torch.solver import lm_fused  # noqa: E402
 
 WINDOW = dict(n_poses=64, n_points=4096, n_objects=32, obs_per_point=6, obs_per_object=12, seed=0)
 GLOBAL = dict(WINDOW, n_poses=256)
@@ -944,7 +966,11 @@ def BandSolveSpy():
 # ---- the main path: two-phase solves --------------------------------------
 
 
-def run_two_phase(problem, plain):
+def run_two_phase(problem, plain, fused=False):
+    """One two-phase solve of ``problem`` with the default parameters: the
+    host LM loop (``solve_two_phase``), or with ``fused`` the captured solve
+    (``solve_two_phase_fused``, CUDA graphs). Returns (final state, summary
+    1, summary 2, wall s)."""
     state, _, cams, tables, plan, free, weights, huber = problem
     aux = TwoPhaseAux(
         is_ltm_obj=torch.zeros(state.objects.shape[0], dtype=torch.bool, device=state.objects.device),
@@ -952,7 +978,7 @@ def run_two_phase(problem, plain):
     )
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    final, s1, s2 = solve_two_phase(
+    final, s1, s2 = (solve_two_phase_fused if fused else solve_two_phase)(
         state, cams, tables, plan, free, weights, aux, LMParams(), LMParams(), huber,
         TwoPhaseConfig(), plain=plain,
     )
@@ -1086,7 +1112,202 @@ def fixed_iterations(label, n_iters=20, runs=3):
     )
 
 
+# ---- the fused solves: CUDA graphs --------------------------------------------
+
+# Iterations per read of the running flag (lm_fused.CHUNK) compared on
+# fixed-length solves, in the phases where the host's share is largest.
+FUSED_CHUNKS = (1, 4)
+FUSED_CHUNK_PHASES = ("global", "window")
+FUSED_FIXED_ITERATIONS = 20
+# Graph path against the eager host loop, f64 under deterministic
+# algorithms: iteration counts per phase at most this far apart, final
+# states within FUSED_RTOL.
+FUSED_ITERATION_SLACK = 1
+FUSED_RTOL = 1e-9
+
+
+def device_profile(fn):
+    """``fn()`` under torch.profiler, CUDA activity only (a window with CPU
+    activity left the later windows of the process short of kernel
+    records): (its result, device operations, device busy ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+    ops_ = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (out, sum(e.count for e in ops_),
+            sum(e.self_device_time_total for e in ops_) / 1e3)
+
+
+def _fixed_params(n_iters):
+    return LMParams(max_num_iterations=n_iters, function_tolerance=0.0, gradient_tolerance=0.0,
+                    parameter_tolerance=0.0)
+
+
+def eager_launches_per_iteration(problem):
+    """Device operations of one host-loop LM iteration, each one launched by
+    the host: the difference of 4- and 2-iteration solves, over 2."""
+    state, _, cams, tables, plan, free, weights, huber = problem
+    counts = []
+    for n in (2, 4):
+        _, n_ops, _ = device_profile(lambda: solve(state, cams, tables, plan, free, weights,
+                                                   _fixed_params(n), huber))
+        counts.append(n_ops)
+    return (counts[1] - counts[0]) / 2
+
+
+def _same_solve(label, what, run, ref):
+    """Gate: ``run`` against ``ref`` (two run_two_phase results): the same
+    termination per phase, iteration counts within FUSED_ITERATION_SLACK,
+    final states within FUSED_RTOL. Returns the largest relative gap."""
+    for k, (a, b) in enumerate(zip(run[1:3], ref[1:3]), 1):
+        if a.termination != b.termination or abs(
+                a.num_iterations - b.num_iterations) > FUSED_ITERATION_SLACK:
+            raise AssertionError(
+                f"{label} {what} phase {k}: {a.num_iterations} iterations, {a.termination}; "
+                f"the eager host loop {b.num_iterations}, {b.termination}")
+    gap = max(rel(getattr(run[0], n), getattr(ref[0], n)) for n in ("poses", "points", "objects"))
+    if not gap <= FUSED_RTOL:
+        raise AssertionError(f"{label} {what}: final state {gap:.3e} from the eager host loop's")
+    return gap
+
+
+def fused_phase(label, phase):
+    """The captured two-phase solve (``solve_two_phase_fused``: CUDA graphs
+    replayed, the running flag read once per chunk) on the phase's problem.
+    In f64 under deterministic algorithms (cuSOLVER for both) against the
+    eager host loop: the solve that builds the graphs and one that replays
+    them (``_same_solve``). In f32 through the kernels, between a reset and
+    a read of the counts: every kernel of the phase launched (replays add
+    their capture's launches), the Schur paths of every step, the final
+    costs within 1e-3 of an f64 plain run (graph path; phase 2 with the f32
+    run's factor selection). Then LM it/s of a replaying solve against the
+    host loop's (``phase``, main_path_phase), the host's launches per LM
+    iteration both ways (eager: the device operations of an iteration;
+    graph path: graph replays), the graph path's device operations and busy
+    share (torch.profiler), captures and ms per capture; in
+    FUSED_CHUNK_PHASES fixed-length rates at each of FUSED_CHUNKS."""
+    t0 = time.perf_counter()
+    card = card_line()
+    prob64 = phase_problem(label, np.float64)
+    linalg = torch.backends.cuda.preferred_linalg_library()
+    lm_fused.clear_graphs()
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        host = run_two_phase(prob64, plain=False)
+        built = run_two_phase(prob64, plain=False, fused=True)
+        replayed = run_two_phase(prob64, plain=False, fused=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cuda.preferred_linalg_library(linalg)
+        lm_fused.clear_graphs()
+    gaps = [_same_solve(label, what, run, host)
+            for what, run in (("f64 graphs (built)", built), ("f64 graphs (replayed)", replayed))]
+    print(f"{label} f64 deterministic: graph path {built[1].num_iterations} + "
+          f"{built[2].num_iterations} iterations, {built[2].termination}; eager host loop "
+          f"{host[1].num_iterations} + {host[2].num_iterations}, {host[2].termination}; final "
+          f"states {gaps[0]:.3e} (built) and {gaps[1]:.3e} (replayed) apart; host loop "
+          f"{host[3]:.3f} s, graphs {built[3]:.3f} s and {replayed[3]:.3f} s "
+          f"[{time.perf_counter() - t0:.1f} s]")
+
+    _, expected = PHASES[label]
+    prob32 = phase_problem(label, np.float32)
+    lm_fused.reset_graph_stats()
+    with Spy(tp_mod, "reweight_on_device") as selection:
+        ops.reset_kernel_launches()
+        schur_mod.reset_path_counts()
+        final, s1, s2, _ = run_two_phase(prob32, plain=False, fused=True)
+        launches = ops.kernel_launches()
+        paths = dict(schur_mod.path_counts)
+    check_result(final, (s1, s2), f"{label} f32 graphs")
+    iters = s1.num_iterations + s2.num_iterations
+    steps = paths.get("steps", 0)
+    if not iters <= steps <= iters + 2 * (lm_fused.CHUNK - 1):
+        raise AssertionError(f"{label} graphs: {steps} steps counted for {iters} LM iterations")
+    for name in expected:
+        if launches[name] != steps:
+            raise AssertionError(f"{label} graphs: kernel {name} launched {launches[name]} "
+                                 f"times in {steps} steps")
+    for name in LOOP_PATHS.get(label, ()) + (("band_solve",) if label == BAND_SOLVE_PHASE
+                                             else ()):
+        if paths.get(name) != steps:
+            raise AssertionError(f"{label} graphs: {paths.get(name, 0)} of {steps} steps "
+                                 f"took {name}")
+    if label != BAND_SOLVE_PHASE and paths.get("band_solve"):
+        raise AssertionError(f"{label} graphs: band solve taken")
+    if label in LOOP_PATHS and launches["band_gram"]:
+        raise AssertionError(f"{label} graphs: K3 launched on a loop closure")
+    weights2 = schur_mod.FactorWeights(*(w.double() for w in selection.result))
+    state, _, cams, tables, plan, free, weights, huber = prob64
+    r1 = solve_fused(state, cams, tables, plan, free, weights, LMParams(), huber, plain=True)[1]
+    r2 = solve_fused(state, cams, tables, plan, free, weights2, LMParams(), huber, plain=True)[1]
+    cost_gaps = [abs(a.final_cost - b.final_cost) / b.final_cost
+                 for a, b in ((s1, r1), (s2, r2))]
+    if not max(cost_gaps) <= 1e-3:
+        raise AssertionError(f"{label} graphs: final cost gaps {cost_gaps} to the f64 plain "
+                             "run > 1e-3")
+
+    run_two_phase(prob32, plain=False, fused=True)  # captures the start and the switch
+    before = dict(lm_fused.graph_stats)
+    _, t1, t2, wall = run_two_phase(prob32, plain=False, fused=True)
+    t_iters = t1.num_iterations + t2.num_iterations
+    replays = lm_fused.graph_stats["replays"] - before["replays"]
+    if lm_fused.graph_stats["captures"] != before["captures"]:
+        raise AssertionError(f"{label} graphs: the timed solve captured")
+    (_, p1, p2, _), graph_ops, busy_ms = device_profile(
+        lambda: run_two_phase(prob32, plain=False, fused=True))
+    p_iters = p1.num_iterations + p2.num_iterations
+    eager_launches = eager_launches_per_iteration(prob32)
+    stats = lm_fused.graph_stats
+    capture_ms = stats["capture_s"] * 1e3 / max(stats["captures"], 1)
+    host_rate = phase["iters"] / phase["wall"]
+    busy = (f"{busy_ms / p_iters / (wall * 1e3 / t_iters):.4f}" if busy_ms > 0
+            else "not measured (the profiler saw no device time)")
+    print(f"{label} f32 graphs on {card}: {t_iters} LM iterations in {wall:.4f} s, "
+          f"{t_iters / wall:.2f} LM it/s (host loop {host_rate:.2f}, x{t_iters / wall / host_rate:.2f}"
+          f"); host launches per LM iteration: eager {eager_launches:.1f} device operations, "
+          f"graph path {replays / t_iters:.3f} graph replays ({graph_ops / p_iters:.1f} device "
+          f"operations); busy share {busy}; {stats['captures']} captures, {capture_ms:.2f} ms "
+          f"per capture; final cost gaps to f64 plain {cost_gaps[0]:.3e}, {cost_gaps[1]:.3e}; "
+          f"launches {launches}; paths {paths} [{time.perf_counter() - t0:.1f} s]")
+
+    rates = {}
+    if label in FUSED_CHUNK_PHASES:
+        state, _, cams, tables, plan, free, weights, huber = prob32
+        params = _fixed_params(FUSED_FIXED_ITERATIONS)
+        default = lm_fused.CHUNK
+        try:
+            for chunk in FUSED_CHUNKS:
+                lm_fused.CHUNK = chunk
+                runs = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t1_ = time.perf_counter()
+                    solve_fused(state, cams, tables, plan, free, weights, params, huber)
+                    torch.cuda.synchronize()
+                    runs.append(FUSED_FIXED_ITERATIONS / (time.perf_counter() - t1_))
+                rates[chunk] = statistics.median(runs[1:])  # the first may build graphs
+        finally:
+            lm_fused.CHUNK = default
+        print(f"{label} fixed {FUSED_FIXED_ITERATIONS}-iteration f32 graph solves on {card}: "
+              + ", ".join(f"{rates[k]:.2f} LM it/s with {k} per flag read"
+                          for k in FUSED_CHUNKS))
+    lm_fused.clear_graphs()
+    return dict(iters=t_iters, wall=wall, rate=t_iters / wall, host_rate=host_rate,
+                eager_launches=eager_launches, replays=replays / t_iters,
+                busy_ms=busy_ms / p_iters if busy_ms > 0 else None, launches=launches,
+                captures=stats["captures"], capture_ms=capture_ms, chunk_rates=rates)
+
+
 # ---- the runner session ----------------------------------------------------
+
+
+def capturing() -> bool:
+    """True while a CUDA graph is being captured on the current stream: a
+    spy then sees operands that hold no values yet."""
+    return DEVICE == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 def _ate(poses, gt):
@@ -1188,6 +1409,20 @@ def run_session(dtype, plain, snapshot_at=None):
                 snapshot=snapshot[0] if snapshot else None)
 
 
+def graph_summary(what):
+    """Prints and returns the fused solves' graph statistics since the last
+    lm_fused.reset_graph_stats(); fails unless graphs were replayed."""
+    stats = dict(lm_fused.graph_stats)
+    if not stats["replays"]:
+        raise AssertionError(f"{what}: no CUDA graph replayed (the fused path was not taken)")
+    print(f"{what} graphs on {card_line()}: {stats['entries_built']} entries built, "
+          f"{stats['captures']} captures in {stats['capture_s']:.4f} s "
+          f"({stats['capture_s'] * 1e3 / max(stats['captures'], 1):.2f} ms each), "
+          f"{stats['replays']} replays, {stats['flag_reads']} flag reads, {stats['evictions']} "
+          f"evictions; {stats['entries']} entries of {stats['bytes']} B held")
+    return stats
+
+
 def session_phase():
     """The session in f32 through the kernels, between a reset and a read of
     the launch counts, with K1's and K4's operands captured; its trajectory error
@@ -1203,7 +1438,7 @@ def session_phase():
 
     def spy(c):
         shapes.add(tuple(c.shape))
-        if not kept or c.shape[0] > kept[0].shape[0]:
+        if not capturing() and (not kept or c.shape[0] > kept[0].shape[0]):
             kept[:] = [c]
         return inner(c)
 
@@ -1213,12 +1448,13 @@ def session_phase():
     reproj_inner = ops.reproj_residuals_and_jac
 
     def reproj_spy(state, cams, f):
-        if not reproj_kept or f.capacity > reproj_kept[0][2].capacity:
+        if not capturing() and (not reproj_kept or f.capacity > reproj_kept[0][2].capacity):
             reproj_kept[:] = [tuple(type(x)(*(t.clone() for t in x)) for x in (state, cams, f))]
         return reproj_inner(state, cams, f)
 
     ops.syrk_gram, ops.reproj_residuals_and_jac = spy, reproj_spy
     torch.cuda.reset_peak_memory_stats()
+    lm_fused.reset_graph_stats()
     try:
         with BandSolveSpy() as band:
             ops.reset_kernel_launches()
@@ -1260,13 +1496,14 @@ def session_phase():
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched in the session phase")
     print(f"session launches: {launches}; K4 operand shapes {sorted(shapes)}")
+    graphs = graph_summary("session")
     if not (ate < 0.5 * odom and ate < 0.05):
         raise AssertionError(f"session ATE {ate:.6f} m: not below half the odometry's "
                              f"({odom:.6f} m) and 0.05 m")
 
     return dict(launches=launches, iters=iters, wall=online_s + run["final_s"],
                 syrk_operand=kept[0], reproj_operands=reproj_kept[0],
-                frames_per_s=len(online) / online_s, ate=ate, run=run)
+                frames_per_s=len(online) / online_s, ate=ate, run=run, graphs=graphs)
 
 
 def object_config():
@@ -1340,17 +1577,19 @@ def run_objects(args, plain, gt, gt_objects=None, stage=None, snapshot_at=None):
     runner, data, pg, fe = session.runner, session.data, session.pg, session.bb_frontend
     vf = session.visual_frontend
     mini, windows, snapshot = [0, 0], [0], []
-    inner, two_phase = bbf.solve, runner._solve_two_phase
+    inner, inner_fused, two_phase = bbf.solve, bbf.solve_fused, runner._solve_two_phase
 
-    def counted(*a, **k):
-        stage[0] = "mini-BA"
-        try:
-            out = inner(*a, **k)
-        finally:
-            stage[0] = None
-        mini[0] += 1
-        mini[1] += out[1].num_iterations
-        return out
+    def counting(solve):
+        def counted(*a, **k):
+            stage[0] = "mini-BA"
+            try:
+                out = solve(*a, **k)
+            finally:
+                stage[0] = None
+            mini[0] += 1
+            mini[1] += out[1].num_iterations
+            return out
+        return counted
 
     def window_ba(*a, **k):
         stage[0] = "window"
@@ -1360,12 +1599,13 @@ def run_objects(args, plain, gt, gt_objects=None, stage=None, snapshot_at=None):
             stage[0] = None
             windows[0] += 1
 
-    bbf.solve, runner._solve_two_phase = counted, window_ba
+    bbf.solve, bbf.solve_fused = counting(inner), counting(inner_fused)
+    runner._solve_two_phase = window_ba
     try:
         run = _drive(runner, data, pg, vf, data.max_frame_id() + 1,
                      before_frame=_snapshot_at(snapshot_at, snapshot, runner, pg, vf, fe))
     finally:
-        bbf.solve = inner
+        bbf.solve, bbf.solve_fused = inner, inner_fused
     return dict(run, session=session, gt=gt, gt_objects=gt_objects,
                 odom_ate=_ate(data.initial_poses, gt), frontend=fe, mini_ba=tuple(mini),
                 window_bas=windows[0], config=session.config, data=data,
@@ -1542,18 +1782,20 @@ def objects_phase(tmp, exported):
 
     def bbox_spy(state, cams, f, invalid_error=1e6):
         keep = {"window": window, "mini-BA": mini}.get(stage[0])
-        if keep is not None and (not keep or f.capacity > keep[0][2].capacity):
+        if keep is not None and not capturing() and (
+                not keep or f.capacity > keep[0][2].capacity):
             keep[:] = [(*_copy_args(state, cams, f), invalid_error)]
         return bbox_inner(state, cams, f, invalid_error)
 
     def reproj_spy(state, cams, f):
-        if stage[0] == "mini-BA" and not mini_reproj:
+        if stage[0] == "mini-BA" and not mini_reproj and not capturing():
             mini_reproj.append(_copy_args(state, cams, f))
         return reproj_inner(state, cams, f)
 
     n_frames = OBJECTS["n_frames"]
     ops.bbox_residuals_and_jac, ops.reproj_residuals_and_jac = bbox_spy, reproj_spy
     torch.cuda.reset_peak_memory_stats()
+    lm_fused.reset_graph_stats()
     try:
         ops.reset_kernel_launches()
         run = run_objects(args, False, gt, gt_objects, stage=stage,
@@ -1591,6 +1833,7 @@ def objects_phase(tmp, exported):
         f"{run['final_s']:.4f} s; launches {launches}, bbox {launches['bbox'] / n_frames:.2f} "
         f"per frame"
     )
+    graphs = graph_summary("objects")
     for r in log:
         if r.termination not in TERMINATION_NAMES.values():
             raise AssertionError(f"objects frame {r.frame_id}: termination {r.termination}")
@@ -1643,7 +1886,7 @@ def objects_phase(tmp, exported):
                 window=window[0], mini=mini[0], mini_reproj=mini_reproj[0],
                 frames_per_s=len(online) / online_s, ate=ate, run=run,
                 cov_err=cov_err, cov_dim=cov_dim, ltm_path=args.long_term_map_output,
-                ltm_objects=sorted(loaded.ellipsoids))
+                ltm_objects=sorted(loaded.ellipsoids), graphs=graphs)
 
 
 def oracle_phase(tmp, exported):
@@ -1825,26 +2068,46 @@ def time_ms(fn, inner=20, reps=9):
     return statistics.median(samples)
 
 
-def device_ms(fn, match=None, calls=20):
-    """Device time per call from torch.profiler: the self time of the device
-    kernels whose name contains ``match`` (all of them when None), summed
-    over ``calls`` calls (in up to three profiler windows, until one sees
-    device time). 0.0 when none does."""
+# Spin kernels launched at the head of a short profiler window. Once the
+# process has captured CUDA graphs, a window drops its first kernel records
+# (2 of 40 K3 records after 240 captures; in a whole run K3 and K4 read 0.3-0.6
+# of their time); the spins take the loss, and a window that kept none of
+# them is taken again.
+PROFILE_PAD = 2000
+PAD_KERNEL = "spin_kernel"
+
+
+def _profile_calls(fn, calls):
+    """The device operations of ``calls`` calls of ``fn`` in one
+    torch.profiler window (CUDA activity) behind PROFILE_PAD spin kernels,
+    the spins left out; [] when no window of three kept a spin."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    total_us = 0.0
-    for _ in range(3):  # a profiler window on a busy host can lose its kernel records
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(100)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(
-            e.self_device_time_total for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and (match is None or match in e.key)
-        )
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if any(PAD_KERNEL in e.key for e in events):
+            return [e for e in events if PAD_KERNEL not in e.key]
+    return []
+
+
+def device_ms(fn, match=None, calls=20):
+    """Device time per call from torch.profiler: the self time of the device
+    kernels whose name contains ``match`` (all of them when None), summed
+    over ``calls`` calls (in up to three profiler windows, until one sees
+    device time). 0.0 when none does."""
+    total_us = 0.0
+    for _ in range(3):  # a profiler window on a busy host can lose its kernel records
+        total_us = sum(e.self_device_time_total for e in _profile_calls(fn, calls)
+                       if match is None or match in e.key)
         if total_us > 0:
             break
     return total_us / 1e3 / calls
@@ -1864,18 +2127,7 @@ def _gram_flops(z):
 def device_kernels_per_call(fn, calls=10):
     """Device operations (kernels, copies, fills) per call of ``fn``, counted
     by torch.profiler over ``calls`` calls; 0.0 when it sees none."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(
-        e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-    ) / calls
+    return sum(e.count for e in _profile_calls(fn, calls)) / calls
 
 
 def launch_floor():
@@ -2474,7 +2726,8 @@ def session_process(label, *args):
         objects=len(pg.objects), merged=len(pg.merged_objects), again=[],
         solves=len(log), iterations=sum(x.iterations for x in log),
         online_s=run["online_s"], final_s=run["final_s"],
-        mini_ba=list(run.get("mini_ba", (0, 0))), launches=ops.kernel_launches())))
+        mini_ba=list(run.get("mini_ba", (0, 0))), launches=ops.kernel_launches(),
+        graphs=dict(lm_fused.graph_stats))))
 
 
 def second_session(directory, ltm_path, out):
@@ -2499,7 +2752,7 @@ def second_session(directory, ltm_path, out):
         iterations=sum(int(r[9]) for r in rows),
         online_s=timing["offline_runner_online_portion"]["total_s"],
         final_s=timing["offline_runner_offline_portion"]["total_s"], mini_ba=[0, 0],
-        launches=ops.kernel_launches())
+        launches=ops.kernel_launches(), graphs=dict(lm_fused.graph_stats))
 
 
 def start_session_process(label, *args):
@@ -2553,7 +2806,10 @@ def check_session_processes(results, session, objects):
                 if r["mini_ba"][0] else "")
         print(f"{label} f64 plain (session process): ATE {r['ate']:.6f} m, "
               f"{r['objects']} objects, {r['solves']} solves, {r['iterations']} LM iterations"
-              f"{mini}, online portion {r['online_s']:.4f} s, final {r['final_s']:.4f} s")
+              f"{mini}, online portion {r['online_s']:.4f} s, final {r['final_s']:.4f} s; "
+              f"graphs {r['graphs']}")
+        if not r["graphs"]["replays"]:
+            raise AssertionError(f"the plain {label} run replayed no CUDA graph")
         if not abs(r["ate"] - f32["ate"]) <= 0.1 * f32["ate"]:
             raise AssertionError(f"{label} ATE f32 {f32['ate']:.6f} vs f64 plain "
                                  f"{r['ate']:.6f}: past 10%")
@@ -2564,7 +2820,8 @@ def check_session_processes(results, session, objects):
           f"{OBJECTS_SECOND['n_frames']} frames, seeded with the {len(objects['ltm_objects'])} "
           f"map objects): ATE {r['ate']:.6f} m, {r['objects']} objects, {r['merged']} merged, "
           f"map objects observed again (in its bb_assoc.json) {r['again']}; online "
-          f"{r['online_s']:.4f} s, {r['iterations']} LM iterations, launches {r['launches']}")
+          f"{r['online_s']:.4f} s, {r['iterations']} LM iterations, launches {r['launches']}; "
+          f"graphs {r['graphs']}")
     if not r["again"]:
         raise AssertionError("objects: the second session re-associated no map object")
     if not all(r["launches"][k] for k in OBJECTS_KERNELS):
@@ -3038,6 +3295,9 @@ def main():
         fixed_iterations("scale_1024", n_iters=10)
         fixed_iterations("loop_1024", n_iters=10)
         print(f"[{time.perf_counter() - t_start:.1f} s] synthetic phases done")
+        for label in PHASES:
+            fused_phase(label, phases[label])
+        print(f"[{time.perf_counter() - t_start:.1f} s] fused phase done")
         sharded_launches = join_sharded_ranks(sharded, sharded_dir, t_sharded)
         print(f"[{time.perf_counter() - t_start:.1f} s] sharded phase done")
         pipeline = start_pipeline(tmp.name)

@@ -240,8 +240,10 @@ def build_session(args: argparse.Namespace, *, plain: bool = False) -> Session:
         parallel.initialize_distributed(device=args.device)
         mesh = parallel.make_mesh(device=args.device)
         if mesh.device.type == "cpu":
-            # Ranks on one host share its cores.
-            torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.size))
+            # Ranks on one host share its cores: a rank takes its share, or
+            # fewer threads where the process was given fewer.
+            share = max(1, (os.cpu_count() or 1) // mesh.size)
+            torch.set_num_threads(min(share, torch.get_num_threads()))
         if mesh.size != args.shard_devices:
             raise SystemExit(f"--shard_devices {args.shard_devices}: the process group has "
                              f"{mesh.size} ranks")

@@ -52,7 +52,7 @@ from obvi_slam_tpu_torch.frontend.visual_features import _pose_to_rt
 from obvi_slam_tpu_torch.offline_data import RawBoundingBox
 from obvi_slam_tpu_torch.parallel import comm
 from obvi_slam_tpu_torch.pose_graph import PoseGraph
-from obvi_slam_tpu_torch.solver import HuberParams, build_schur_plan_host, solve
+from obvi_slam_tpu_torch.solver import HuberParams, build_schur_plan_host, solve, solve_fused
 from obvi_slam_tpu_torch.solver.problem import camera_bundle_from_pose_graph
 from obvi_slam_tpu_torch.timing import timer
 
@@ -528,9 +528,17 @@ class FeatureBasedBoundingBoxFrontEnd:
         from obvi_slam_tpu_torch.runner import lm_params_from_config
 
         lm_params = lm_params_from_config(est_params.solver_params)
-        new_state, summary = solve(
-            state, cams, tables, plan, free, params=lm_params, huber=huber, plain=self.plain
-        )
+        if torch.device(device).type == "cuda":
+            # The fused solve (CUDA graphs), with records when the logger
+            # reads them, as the reference's on an accelerator.
+            new_state, summary = solve_fused(
+                state, cams, tables, plan, free, params=lm_params, huber=huber,
+                with_records=optlog.IterationLoggerFactory.instance().enabled, plain=self.plain,
+            )
+        else:
+            new_state, summary = solve(
+                state, cams, tables, plan, free, params=lm_params, huber=huber, plain=self.plain
+            )
         optlog.IterationLoggerFactory.instance().log_iterations(
             optlog.PENDING_ESTIMATOR_TYPE, "_".join(str(t) for t in targets), summary,
             7 * len(targets),

@@ -21,7 +21,8 @@ All CSVs are comma-separated with one header line
     (data/vslam_set1/000001.txt)
 
 This module is a copy of ``obvi_slam_tpu/io/readers.py`` (numpy and scipy
-only); the port keeps its own copy and imports nothing of the JAX package.
+only, the ORB observation files parsed by the port's ``native`` runtime);
+the port keeps its own copy and imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 from scipy.spatial.transform import Rotation
 
+from obvi_slam_tpu_torch import native as native_mod
 from obvi_slam_tpu_torch.offline_data import RawBoundingBox
 from obvi_slam_tpu_torch.pose_graph import CameraInfo
 
@@ -124,12 +126,14 @@ def read_orb_output_directory(
     directory: str,
     camera_precedence_order: Optional[List[int]] = None,
     max_frame_id: Optional[int] = None,
+    native: bool = True,
 ):
     """Returns (feature_tracks: feat -> frame -> cam -> pixel,
     feature_init_positions: feat -> (3,)). Single-observation features are
     dropped (orb_output_low_level_feature_reader.cpp:66-71); frames past
-    ``max_frame_id`` are skipped. The reference package's native loader is
-    not ported: this is its pure-Python branch, with the same result."""
+    ``max_frame_id`` are skipped. The observation files are parsed by the
+    native runtime, or in Python with ``native=False``; the results are
+    equal."""
     obs: Dict[int, Dict[int, Dict[int, np.ndarray]]] = {}
     obs_count: Dict[int, int] = {}
     paths = [
@@ -137,28 +141,43 @@ def read_orb_output_directory(
         for name in sorted(os.listdir(directory))
         if name.endswith(".txt") and os.path.isfile(os.path.join(directory, name))
     ]
-    for path in paths:
-        with open(path) as f:
-            lines = f.read().strip().splitlines()
-        if len(lines) < 2:
-            continue
-        frame_id = int(lines[0].split()[0])
-        if max_frame_id is not None and frame_id > max_frame_id:
-            continue
-        for line in lines[2:]:
-            parts = line.split()
-            if len(parts) < 4:
+    if native:
+        feat_a, frame_a, cam_a, px_a, py_a = native_mod.load_orb_observations(paths)
+        last = (None, None)
+        for i in range(len(feat_a)):
+            frame_id = int(frame_a[i])
+            if max_frame_id is not None and frame_id > max_frame_id:
                 continue
-            feat_id = int(parts[0])
-            i = 1
-            while i + 2 < len(parts):
-                cam_id = int(parts[i])
-                x, y = float(parts[i + 1]), float(parts[i + 2])
-                obs.setdefault(feat_id, {}).setdefault(frame_id, {})[cam_id] = (
-                    np.array([x, y])
-                )
-                i += 3
-            obs_count[feat_id] = obs_count.get(feat_id, 0) + 1
+            feat_id = int(feat_a[i])
+            obs.setdefault(feat_id, {}).setdefault(frame_id, {})[int(cam_a[i])] = (
+                np.array([px_a[i], py_a[i]])
+            )
+            if (feat_id, frame_id) != last:
+                obs_count[feat_id] = obs_count.get(feat_id, 0) + 1
+                last = (feat_id, frame_id)
+    else:
+        for path in paths:
+            with open(path) as f:
+                lines = f.read().strip().splitlines()
+            if len(lines) < 2:
+                continue
+            frame_id = int(lines[0].split()[0])
+            if max_frame_id is not None and frame_id > max_frame_id:
+                continue
+            for line in lines[2:]:
+                parts = line.split()
+                if len(parts) < 4:
+                    continue
+                feat_id = int(parts[0])
+                i = 1
+                while i + 2 < len(parts):
+                    cam_id = int(parts[i])
+                    x, y = float(parts[i + 1]), float(parts[i + 2])
+                    obs.setdefault(feat_id, {}).setdefault(frame_id, {})[cam_id] = (
+                        np.array([x, y])
+                    )
+                    i += 3
+                obs_count[feat_id] = obs_count.get(feat_id, 0) + 1
     # Drop single-observation features.
     for feat_id, n in obs_count.items():
         if n == 1:

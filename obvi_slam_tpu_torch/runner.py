@@ -12,9 +12,11 @@ Counterpart of ``obvi_slam_tpu/runner.py`` (``OfflineProblemRunner``):
            objects + feature re-anchoring + feature-only BA (pgo.py)]
           build the window problem (solver.problem, session caps pool)
           two-phase BA: phase-1 LM, outlier ranking + factor re-selection,
-          phase-2 LM from the window's input values (one solve_two_phase
-          call, or the host loop: see ``OfflineProblemRunner``), or one LM
-          solve when feature_outlier_percentage is 0
+          phase-2 LM from the window's input values (one fused solve of
+          CUDA graphs on the card, one solve_two_phase call of host LM
+          loops, or the reference's host loop: see
+          ``OfflineProblemRunner``), or one LM solve when
+          feature_outlier_percentage is 0
           jump check -> revert
   final: run_optimization_iteration(0, N)
   merge loop: while the object_merger hook merges -> full re-optimization
@@ -56,7 +58,14 @@ from obvi_slam_tpu_torch.pose_graph import (
     REPROJECTION_FACTOR,
     PoseGraph,
 )
-from obvi_slam_tpu_torch.solver import LMParams, TwoPhaseConfig, solve, solve_two_phase
+from obvi_slam_tpu_torch.solver import (
+    LMParams,
+    TwoPhaseConfig,
+    solve,
+    solve_fused,
+    solve_two_phase,
+    solve_two_phase_fused,
+)
 from obvi_slam_tpu_torch.solver.problem import (
     Problem,
     Scope,
@@ -168,14 +177,17 @@ class OfflineProblemRunner:
     ``dtype`` is the numpy float type of the window tables; ``plain`` runs
     every kernel's plain PyTorch version (reference runs).
 
-    ``use_fused_solver``: None or True run each two-phase window as one
-    ``solve_two_phase`` call (outlier ranking and re-selection on the
-    device); False runs the reference's host loop (phase-1 solve, outlier
-    ranking on the host, ``reweight_for_exclusions``, phase-2 solve, each
-    phase under its own timers). Both select the same exclusions. The
-    reference picks by device when None (its fused loop is one device
-    program); the port's fused loop is already a host loop with one readback
-    per LM iteration, so None takes it on every device.
+    ``use_fused_solver``: True runs every solve fused (``solve_fused``; a
+    two-phase window as one ``solve_two_phase_fused`` call, outlier ranking
+    and re-selection on the device): CUDA graphs replayed on the card, the
+    same masked iteration eagerly on the CPU. None, as the reference, takes
+    the fused solves on CUDA and the host LM loop (``solve``; a two-phase
+    window as one ``solve_two_phase`` call, re-selection on the device) on
+    the CPU. False runs the host LM loop and the reference's host loop of a
+    two-phase window (phase-1 solve, outlier ranking on the host,
+    ``reweight_for_exclusions``, phase-2 solve, each phase under its own
+    timers). All select the same exclusions. With a ``mesh`` every solve
+    takes the host LM loop: the collectives are not captured.
 
     ``mesh``: shard global-BA solves over its ranks (a ``parallel.Mesh`` of
     an initialized process group; see the module docstring);
@@ -223,14 +235,30 @@ class OfflineProblemRunner:
         update_caps_pool(pool, problem)
         return problem
 
+    def _fused(self) -> bool:
+        """Whether the solves take the fused path (see the class docstring)."""
+        if self.mesh is not None:
+            return False
+        if self.use_fused_solver is None:
+            return torch.device(self.device).type == "cuda"
+        return bool(self.use_fused_solver)
+
+    def _with_records(self) -> bool:
+        """Whether a fused solve returns its IterationRecords: when a solve
+        logger or the optimization logger reads them, as the reference."""
+        return (self.hooks.solve_logger is not None
+                or optlog.IterationLoggerFactory.instance().enabled)
+
     def solve(self, problem: Problem, params: LMParams, weights=None, mesh=None):
         """One LM solve of a built Problem: (final_state, LMSummary). With
         ``mesh`` the problem (and ``weights``) is the rank's shard."""
-        state, summary = solve(
-            problem.state, problem.cams, problem.tables, problem.plan, problem.free,
-            problem.weights if weights is None else weights, params, problem.huber,
-            plain=self.plain, mesh=mesh,
-        )
+        args = (problem.state, problem.cams, problem.tables, problem.plan, problem.free,
+                problem.weights if weights is None else weights, params, problem.huber)
+        if self._fused():
+            state, summary = solve_fused(*args, with_records=self._with_records(),
+                                         plain=self.plain)
+        else:
+            state, summary = solve(*args, plain=self.plain, mesh=mesh)
         return self._agree(state), summary
 
     def _solve_mesh(self, global_ba: bool):
@@ -435,13 +463,16 @@ class OfflineProblemRunner:
             fix_ltm_objects=bool(sc.fix_ltm_objects),
             force_include_ltm_objs=bool(sc.force_include_ltm_objs),
         )
-        state, s1, s2 = solve_two_phase(
-            problem.state, problem.cams, problem.tables, problem.plan, problem.free,
-            problem.weights, problem.aux,
-            lm_params_from_config(iteration_params.phase_one_opt_params),
-            lm_params_from_config(iteration_params.phase_two_opt_params),
-            problem.huber, tp_cfg, plain=self.plain, mesh=mesh,
-        )
+        args = (problem.state, problem.cams, problem.tables, problem.plan, problem.free,
+                problem.weights, problem.aux,
+                lm_params_from_config(iteration_params.phase_one_opt_params),
+                lm_params_from_config(iteration_params.phase_two_opt_params),
+                problem.huber, tp_cfg)
+        if self._fused():
+            state, s1, s2 = solve_two_phase_fused(
+                *args, with_records=self._with_records(), plain=self.plain)
+        else:
+            state, s1, s2 = solve_two_phase(*args, plain=self.plain, mesh=mesh)
         return self._agree(state), s1, s2
 
     def _solve_two_phase_host(

@@ -4,7 +4,14 @@ from obvi_slam_tpu_torch.solver.lm import (  # noqa: F401
     LMParams,
     LMSummary,
 )
-from obvi_slam_tpu_torch.solver.lm_fused import solve, solve_two_phase  # noqa: F401
+from obvi_slam_tpu_torch.solver.lm_fused import (  # noqa: F401
+    solve,
+    solve_fused,
+    solve_fused_jit,
+    solve_two_phase,
+    solve_two_phase_fused,
+    solve_two_phase_jit,
+)
 from obvi_slam_tpu_torch.solver.plan import (  # noqa: F401
     SchurPlan,
     build_schur_plan,

@@ -4,8 +4,9 @@ Counterpart of the plan half of ``obvi_slam_tpu/solver/schur.py``
 (``SchurPlan``, ``_round_up``, ``_slot_layout``, the numpy ``_build_pairs``,
 ``_band_layout``, ``_rel_band_layout``, ``_pair_factor_gather``,
 ``build_schur_plan``, ``build_schur_plan_host``).
-The reference's native C++ pair builder is not copied: its numpy twin here
-is the specification and gives the same arrays.
+The pair plan's core runs in the native runtime (``native``, the
+reference's C++ copied), or in its numpy twin ``_pair_plan_numpy`` with
+``native=False``; the two give the same arrays.
 
 From ``3 * BAND_TP`` = 192 poses up, ``_band_layout`` regroups the point
 slot grid into 64-pose groups for the banded gram (kernel K3), and
@@ -20,6 +21,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from obvi_slam_tpu_torch import native as native_mod
 
 # Poses per band group; each group's local pose window is 2 * BAND_TP wide,
 # and banding starts at 3 groups' worth of poses.
@@ -209,12 +212,10 @@ def _unique_rows(a, b):
     return np.stack([keys // span, keys % span], axis=1), inv.reshape(-1)
 
 
-def _build_pairs(
-    block_idx, land_idx, mask, pair_cap=None, cross_cap=None,
-    land_cap=None, cmax_cap=None, dest_cap=None,
-):
-    """Unique (pose, landmark) pairs, the per-landmark ordered cross pairs
-    grouped by destination block, and the slot grid."""
+def _pair_plan_numpy(block_idx, land_idx, mask):
+    """The numpy twin of ``native.build_pair_plan``: (factor_pair,
+    pair_block, pair_land, cross_a, cross_b, cross_dest, dest_a, dest_b),
+    unpadded."""
     live = np.nonzero(mask)[0]
     uniq, inv = _unique_rows(block_idx[live], land_idx[live])
     n_pairs = len(uniq)
@@ -243,7 +244,23 @@ def _build_pairs(
     else:
         dest_uniq = np.zeros((0, 2), dtype=np.int64)
         cross_dest = np.zeros(0, dtype=np.int64)
-    n_dest = len(dest_uniq)
+    return (factor_pair, uniq[:, 0], uniq[:, 1], cross_a, cross_b, cross_dest,
+            dest_uniq[:, 0], dest_uniq[:, 1])
+
+
+def _build_pairs(
+    block_idx, land_idx, mask, pair_cap=None, cross_cap=None,
+    land_cap=None, cmax_cap=None, dest_cap=None, native=True,
+):
+    """Unique (pose, landmark) pairs, the per-landmark ordered cross pairs
+    grouped by destination block, and the slot grid, padded to the caps.
+    The core comes from the native runtime, or from its numpy twin with
+    ``native=False``; the two are equal array for array."""
+    core = (native_mod.build_pair_plan if native else _pair_plan_numpy)(
+        block_idx, land_idx, mask)
+    factor_pair, pair_block, pair_land, cross_a, cross_b, cross_dest, dest_a, dest_b = core
+    n_pairs = len(pair_block)
+    n_dest = len(dest_a)
 
     pair_cap = max(pair_cap or 0, _round_up(n_pairs))
     cross_cap = max(cross_cap or 0, _round_up(len(cross_a)))
@@ -256,8 +273,6 @@ def _build_pairs(
     dest_mask[:n_dest] = True
     # Padding cross rows point at a padding destination.
     cross_dest_padded = _pad_i(cross_dest, cross_cap, fill=min(n_dest, dest_cap - 1))
-    pair_block = uniq[:, 0] if n_pairs else np.zeros(0, np.int64)
-    pair_land = uniq[:, 1] if n_pairs else np.zeros(0, np.int64)
     return (
         factor_pair,
         _pad_i(pair_block, pair_cap),
@@ -267,8 +282,8 @@ def _build_pairs(
         _pad_i(cross_b, cross_cap),
         cross_mask,
         cross_dest_padded,
-        _pad_i(dest_uniq[:, 0] if n_dest else [], dest_cap),
-        _pad_i(dest_uniq[:, 1] if n_dest else [], dest_cap),
+        _pad_i(dest_a, dest_cap),
+        _pad_i(dest_b, dest_cap),
         dest_mask,
     ) + _slot_layout(pair_block, pair_land, n_pairs, land_cap, cmax_cap)
 
@@ -294,24 +309,25 @@ def _to_device(plan: SchurPlan, device) -> SchurPlan:
 
 def build_schur_plan_numpy(
     rp_pose, rp_point, rp_mask, bb_pose, bb_obj, bb_mask, caps=None, n_pose=None,
-    rl_before=None, rl_after=None, rl_cap=0,
+    rl_before=None, rl_after=None, rl_cap=0, native=True,
 ) -> SchurPlan:
     """The plan as numpy arrays from padded index columns and masks.
 
     ``caps`` pins minimum capacities (keys pt_pair, pt_cross, pt_slot_land,
     pt_slot_c, pt_dest, the ob_* twins, pt_band_lg, rel_band_lg).
     ``rl_before``/``rl_after`` are the live relpose pairs and ``rl_cap`` the
-    relpose table capacity; without them no relpose band is built."""
+    relpose table capacity; without them no relpose band is built.
+    ``native=False`` builds the pairs with the numpy twin."""
     caps = caps or {}
     pt = _build_pairs(
         np.asarray(rp_pose), np.asarray(rp_point), np.asarray(rp_mask),
         caps.get("pt_pair"), caps.get("pt_cross"), caps.get("pt_slot_land"),
-        caps.get("pt_slot_c"), caps.get("pt_dest"),
+        caps.get("pt_slot_c"), caps.get("pt_dest"), native,
     )
     ob = _build_pairs(
         np.asarray(bb_pose), np.asarray(bb_obj), np.asarray(bb_mask),
         caps.get("ob_pair"), caps.get("ob_cross"), caps.get("ob_slot_land"),
-        caps.get("ob_slot_c"), caps.get("ob_dest"),
+        caps.get("ob_slot_c"), caps.get("ob_dest"), native,
     )
     pt_slot = pt[11:]
     band = _band_layout(*pt_slot, n_pose, caps.get("pt_band_lg"))
@@ -338,7 +354,7 @@ def build_schur_plan_numpy(
 
 def build_schur_plan(
     tables, caps=None, n_pose=None, rl_before=None, rl_after=None, rl_cap=0,
-    device="cuda",
+    device="cuda", native=True,
 ) -> SchurPlan:
     """Plan from the factor tables' index columns (read back to the host)."""
     rp, bb = tables.reproj, tables.bbox
@@ -349,14 +365,14 @@ def build_schur_plan(
     plan = build_schur_plan_numpy(
         host(rp.pose_idx), host(rp.point_idx), host(rp.mask),
         host(bb.pose_idx), host(bb.obj_idx), host(bb.mask), caps, n_pose,
-        rl_before, rl_after, rl_cap,
+        rl_before, rl_after, rl_cap, native,
     )
     return _to_device(plan, device)
 
 
 def build_schur_plan_host(
     rp_pose, rp_point, rp_cap, bb_pose, bb_obj, bb_cap, caps=None,
-    n_pose=None, rl_before=None, rl_after=None, rl_cap=0, device="cuda",
+    n_pose=None, rl_before=None, rl_after=None, rl_cap=0, device="cuda", native=True,
 ) -> SchurPlan:
     """Plan from live host index lists; ``*_cap`` are the table capacities."""
 
@@ -373,6 +389,6 @@ def build_schur_plan_host(
     bb_obj_a, _ = padded(bb_obj, bb_cap)
     plan = build_schur_plan_numpy(
         rp_pose_a, rp_point_a, rp_mask, bb_pose_a, bb_obj_a, bb_mask, caps, n_pose,
-        rl_before, rl_after, rl_cap,
+        rl_before, rl_after, rl_cap, native,
     )
     return _to_device(plan, device)

@@ -226,12 +226,18 @@ def choose_paths(plan, n_pose, n_point, dense_schur=None) -> SchurPaths:
 
 
 # Steps per path since the last reset_path_counts(): "steps", and each of
-# SchurPaths.labels().
+# SchurPaths.labels(). A replayed CUDA graph adds the steps of its capture.
 path_counts: dict = {}
 
 
 def reset_path_counts() -> None:
     path_counts.clear()
+
+
+def add_path_counts(counts: dict) -> None:
+    """Adds {path: steps} to ``path_counts`` (a CUDA graph's replay)."""
+    for name, n in counts.items():
+        path_counts[name] = path_counts.get(name, 0) + n
 
 
 def _count_paths(paths: SchurPaths) -> None:
@@ -498,7 +504,8 @@ def compute_step(
     """One LM step: returns (delta: BAState, model_cost_change, grad_max),
     the last two as 0-dim tensors.
 
-    The trust-region radius enters as Ceres' damping
+    The trust-region radius (a float, or a 0-dim tensor on the state's
+    device, as the fused solves pass it) enters as Ceres' damping
     H + diag(clamp(diag(H))) / radius. ``dense_schur`` None chooses the
     path (``choose_paths``); True forces the slot-gram / dense-from-pairs
     path, False pair enumeration. ``plain`` evaluates K1-K4 with their plain

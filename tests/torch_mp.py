@@ -2,7 +2,9 @@
 each, on the CPU: the ranks meet at a free localhost port, every rank writes
 its result to ``<out>/rank<r>.pt``, and the launcher joins them under one
 timeout, kills every rank on expiry and fails the test, so that a rank
-stuck in a collective never holds up the run."""
+stuck in a collective never holds up the run. Each rank dumps its stacks
+into its log shortly before the timeout (``torch_mp_worker.DUMP_MARGIN``),
+and the failure shows the logs' ends."""
 
 import os
 import socket
@@ -34,7 +36,8 @@ def run_ranks(job: str, n: int, out: Path, timeout: float = 120.0):
     for rank in range(n):
         log = open(out / f"rank{rank}.log", "w")
         procs.append((subprocess.Popen(
-            [sys.executable, str(WORKER), job, str(rank), str(n), str(port), str(out)],
+            [sys.executable, str(WORKER), job, str(rank), str(n), str(port), str(out),
+             str(timeout)],
             stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(HERE.parent)), log))
     deadline = time.monotonic() + timeout
     try:

@@ -1,12 +1,15 @@
 """One gloo rank of a job that ``tests/torch_mp.py`` launches:
 
-    python tests/torch_mp_worker.py <job> <rank> <ranks> <port> <dir>
+    python tests/torch_mp_worker.py <job> <rank> <ranks> <port> <dir> [<seconds>]
 
 The rank joins the others through ``parallel.initialize_distributed`` at
 localhost:<port> on the CPU, runs ``JOBS[job]`` on the inputs the test wrote
 to ``<dir>/inputs.pt`` and saves what it returns to ``<dir>/rank<r>.pt``.
-Imports torch and the port only."""
+With ``<seconds>`` (the launcher's deadline) the rank dumps every thread's
+stack into its log shortly before it, so that a slow or stuck rank shows
+where it is. Imports torch and the port only."""
 
+import faulthandler
 import sys
 from pathlib import Path
 
@@ -162,7 +165,13 @@ JOBS = {"dd_solve": job_dd_solve, "step": job_step, "runner": job_runner,
         "frontend": job_frontend, "frontend_session": job_frontend_session}
 
 
-def main(job, rank, n, port, out):
+# How long before the launcher's deadline a rank dumps its stacks.
+DUMP_MARGIN = 10.0
+
+
+def main(job, rank, n, port, out, seconds=None):
+    if seconds is not None:
+        faulthandler.dump_traceback_later(max(float(seconds) - DUMP_MARGIN, 1.0), exit=False)
     par.initialize_distributed(f"localhost:{port}", int(n), int(rank), device="cpu")
     mesh = par.make_mesh(device="cpu")
     out = Path(out)
@@ -173,4 +182,4 @@ def main(job, rank, n, port, out):
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:6])
+    main(*sys.argv[1:7])
