@@ -54,7 +54,10 @@ Then it drives the main path, eight phases, each with the launch counts
 each checked against an f64 run of the plain versions (phase 2 with the f32
 run's outlier selection) and against an f64 run that selects its own,
 whose selection may differ in at most 5% of the excluded factors. These
-phases time the host LM loop (``solve_two_phase``). The ``fused`` phase
+phases time the host LM loop (``solve_two_phase``); the final-cost gates
+(1e-3) compare an f32 solve and its references made under deterministic
+algorithms (``deterministic``), because where the LM stops on a slow
+descent moves with the order of the card's atomic sums. The ``fused`` phase
 then runs each of the five problems through ``solve_two_phase_fused``,
 the path the runner takes on the card: each LM iteration a replay of a
 CUDA graph captured over static buffers, the running flag read once per
@@ -64,7 +67,8 @@ termination, iteration counts within 1, final states within 1e-9), both
 where it builds its graphs and where it replays them; in f32 through the
 kernels it meets the synthetic phases' gates (every kernel launched,
 counted per replay from its capture; the Schur paths of every step; the
-final costs within 1e-3 of the f64 plain run with its factor selection).
+final costs within 1e-3 of the f64 plain run with its factor selection,
+both deterministic).
 It prints LM it/s both ways, the host's launches per LM iteration (eager:
 every device operation; graph path: graph replays), the busy share, the
 captures and ms per capture, and fixed 20-iteration rates at 1 and 4
@@ -98,7 +102,13 @@ runner's default on the card, and print their captures; and
     point's ``main`` seeded from the map, must observe a map object again.
     K2 is then held against its plain version at the session's largest
     two-phase window BA table and a mini-BA table, and K1 at the mini-BA's
-    empty reprojection table. The Jacobian debug oracle then reads the
+    empty reprojection table. Both sessions presize their capacities (the
+    runner's caps pools from the raw data before frame 0, the mini-BA's
+    bucketed caps), and print their graph entries and captures by solve
+    family (``GraphFamilies``); one mini-BA on asymmetric chairs, in f64
+    under deterministic algorithms, at the buckets must end within 1e-9 of
+    the same mini-BA at the pending set's own sizes
+    (``mini_ba_padding_check``). The Jacobian debug oracle then reads the
     session's final checkpoint: ``extract_jacobian`` in f64 through K1/K2
     against the CPU's plain run, and the ``debug_jacobian_hessian_diagonal``
     CLI with ``--device cuda`` against ``--device cpu``.
@@ -110,8 +120,8 @@ ranks (the band solve domain-decomposed, one domain per rank), ``window``
 on 2 (K4 on each rank's landmark rows) and ``loop_1024`` on 2 (pair
 enumeration), each the f64 plain step against one process (1e-9), the f32
 two-phase solve through the kernels against the f64 plain one on the ranks
-(1e-3), ranks equal bit for bit, every kernel launched on every rank and
-held against its plain version on the rank's operands, the
+(1e-3, both deterministic), ranks equal bit for bit, every kernel launched
+on every rank and held against its plain version on the rank's operands, the
 domain-decomposed step's all-gather budget; it prints the collectives and
 ms per LM iteration (ranks sharing one card: correctness and traffic, not
 scaling).
@@ -265,6 +275,13 @@ OBJECT_TIMERS = ("frame_data_adder", "refine_initial_estimate_for_pending_object
 PGO_TIMERS = ("obj_only_pgo_full_process", "obj_only_pgo_local_track_solve",
               "obj_only_pgo_solve_pgo", "obj_only_pgo_opt_feat_adjust_solve")
 CHAIR_PRIOR = ([0.62, 0.62, 0.975], [0.05, 0.05, 0.05])  # mean, std per axis
+# The pending set of the mini-BA padding check: four chairs of asymmetric
+# dimensions over four frames of one camera (fewer views than the
+# association's 5, so that they stay pending), and the largest difference
+# of the padded mini-BA's estimates from the unpadded one's, f64, as a share
+# of their scale.
+MINI_BA_SET = dict(n_frames=4, n_objects=4, n_features=80, seed=21, dims=(0.5, 0.8, 0.975))
+MINI_BA_PAD_TOL = 1e-9
 # The main entry point's output flags and their names in an output directory;
 # the per-iteration CSV types and checkpoints the object session must write.
 OUTPUTS = {
@@ -998,6 +1015,23 @@ def reference_two_phase(problem, weights2):
     return final, r1, r2, time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms, cuSOLVER for the linear algebra, for the
+    block: sums in a fixed order, so that a run repeats bit for bit on one
+    card. The LM's stopping point on a slow descent moves with the order of
+    the atomic sums (``lm_stop_spread.py``), so the final-cost gates
+    compare runs made so."""
+    linalg = torch.backends.cuda.preferred_linalg_library()
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cuda.preferred_linalg_library(linalg)
+
+
 def check_result(final, summaries, what):
     for name, x in final._asdict().items():
         if not bool(torch.isfinite(x).all()):
@@ -1018,13 +1052,14 @@ def check_result(final, summaries, what):
 
 def main_path_phase(label):
     """One warm-up solve, then the measured one between a reset and a read
-    of the launch counts; then the f64 plain reference."""
+    of the launch counts; then, under deterministic(), the solve once more
+    and the f64 plain reference."""
     _, expected = PHASES[label]
     problem32 = phase_problem(label, np.float32)
     run_two_phase(problem32, plain=False)  # warm-up: allocator, cuBLAS/cuSOLVER handles
 
     torch.cuda.reset_peak_memory_stats()
-    with BandSolveSpy() as spy, Spy(tp_mod, "reweight_on_device") as selection:
+    with BandSolveSpy() as spy:
         ops.reset_kernel_launches()
         schur_mod.reset_path_counts()
         final, s1, s2, wall = run_two_phase(problem32, plain=False)
@@ -1051,29 +1086,37 @@ def main_path_phase(label):
     if label in LOOP_PATHS and (launches["band_gram"] or paths.get("band_solve")):
         raise AssertionError(f"{label}: K3 launched or band solve taken on a loop closure")
 
-    # The reference: both phases in f64 through the plain versions, phase 2
-    # with the f32 run's factor selection. Two runs that select their own
-    # outliers at slightly different phase-1 optima can exclude different
-    # factors at the 10% boundary, and then solve different phase-2 problems.
-    weights2 = schur_mod.FactorWeights(*(w.double() for w in selection.result))
+    # The final-cost gates: the f32 solve through the kernels once more and
+    # its reference, both under deterministic() so that the gaps repeat
+    # from run to run. The reference: both phases in f64 through the plain
+    # versions, phase 2 with the f32 run's factor selection. Two runs that
+    # select their own outliers at slightly different phase-1 optima can
+    # exclude different factors at the 10% boundary, and then solve
+    # different phase-2 problems. The independent reference: an f64 plain
+    # solve_two_phase that selects its own outliers. Its selection may
+    # differ from the f32 run's in at most SELECTION_LIMIT of the factors
+    # the f32 run excluded; where the two agree, its phase-2 final cost must
+    # lie within 1e-3 as well.
+    with deterministic():
+        with Spy(tp_mod, "reweight_on_device") as selection:
+            final, d1, d2, _ = run_two_phase(problem32, plain=False)
+        weights2 = schur_mod.FactorWeights(*(w.double() for w in selection.result))
+        final64, r1, r2, wall64 = reference_two_phase(phase_problem(label, np.float64),
+                                                      weights2)
+        with Spy(tp_mod, "reweight_on_device") as own:
+            _, _, own2, _ = run_two_phase(phase_problem(label, np.float64), plain=True)
+    check_result(final, (d1, d2), f"{label} f32 kernels (deterministic)")
     excluded = int(((problem32[3].reproj.mask) & (weights2.reproj == 0)).sum())
-    final64, r1, r2, wall64 = reference_two_phase(phase_problem(label, np.float64), weights2)
-    check_result(final64, (r1, r2), f"{label} f64 plain")
+    check_result(final64, (r1, r2), f"{label} f64 plain (deterministic)")
     print(f"{label} f64 plain: {wall64:.4f} s wall; phase 2 with the f32 run's selection "
           f"({excluded} reprojection factors excluded)")
-    for k, (a, b) in enumerate(((s1, r1), (s2, r2)), 1):
+    for k, (a, b) in enumerate(((d1, r1), (d2, r2)), 1):
         gap = abs(a.final_cost - b.final_cost) / b.final_cost
         print(f"{label} phase {k} final cost f32 kernels vs f64 plain: relative gap {gap:.3e}")
         if not gap <= 1e-3:
             raise AssertionError(f"{label} phase {k} final cost gap {gap:.3e} > 1e-3")
-    # The independent reference: an f64 plain solve_two_phase that selects
-    # its own outliers. Its selection may differ from the f32 run's in at
-    # most SELECTION_LIMIT of the factors the f32 run excluded; where the two
-    # agree, its phase-2 final cost must lie within 1e-3 as well.
-    with Spy(tp_mod, "reweight_on_device") as own:
-        _, _, own2, _ = run_two_phase(phase_problem(label, np.float64), plain=True)
     changed = sum(int((a != b).sum()) for a, b in zip(own.result, weights2))
-    own_gap = abs(s2.final_cost - own2.final_cost) / own2.final_cost
+    own_gap = abs(d2.final_cost - own2.final_cost) / own2.final_cost
     print(f"{label} f64 plain with its own selection: {changed} factor weights differ from "
           f"the f32 run's (limit {SELECTION_LIMIT * excluded:.1f}); phase 2 final cost gap "
           f"{own_gap:.3e}")
@@ -1180,10 +1223,11 @@ def fused_phase(label, phase):
     eager host loop: the solve that builds the graphs and one that replays
     them (``_same_solve``). In f32 through the kernels, between a reset and
     a read of the counts: every kernel of the phase launched (replays add
-    their capture's launches), the Schur paths of every step, the final
-    costs within 1e-3 of an f64 plain run (graph path; phase 2 with the f32
-    run's factor selection). Then LM it/s of a replaying solve against the
-    host loop's (``phase``, main_path_phase), the host's launches per LM
+    their capture's launches), the Schur paths of every step; then, both
+    under deterministic(), the final costs of the f32 graph path within
+    1e-3 of an f64 plain run (graph path; phase 2 with the f32 run's factor
+    selection). Then LM it/s of a replaying solve against the host loop's
+    (``phase``, main_path_phase), the host's launches per LM
     iteration both ways (eager: the device operations of an iteration;
     graph path: graph replays), the graph path's device operations and busy
     share (torch.profiler), captures and ms per capture; in
@@ -1191,17 +1235,13 @@ def fused_phase(label, phase):
     t0 = time.perf_counter()
     card = card_line()
     prob64 = phase_problem(label, np.float64)
-    linalg = torch.backends.cuda.preferred_linalg_library()
     lm_fused.clear_graphs()
-    torch.use_deterministic_algorithms(True)
-    torch.backends.cuda.preferred_linalg_library("cusolver")
     try:
-        host = run_two_phase(prob64, plain=False)
-        built = run_two_phase(prob64, plain=False, fused=True)
-        replayed = run_two_phase(prob64, plain=False, fused=True)
+        with deterministic():
+            host = run_two_phase(prob64, plain=False)
+            built = run_two_phase(prob64, plain=False, fused=True)
+            replayed = run_two_phase(prob64, plain=False, fused=True)
     finally:
-        torch.use_deterministic_algorithms(False)
-        torch.backends.cuda.preferred_linalg_library(linalg)
         lm_fused.clear_graphs()
     gaps = [_same_solve(label, what, run, host)
             for what, run in (("f64 graphs (built)", built), ("f64 graphs (replayed)", replayed))]
@@ -1215,12 +1255,11 @@ def fused_phase(label, phase):
     _, expected = PHASES[label]
     prob32 = phase_problem(label, np.float32)
     lm_fused.reset_graph_stats()
-    with Spy(tp_mod, "reweight_on_device") as selection:
-        ops.reset_kernel_launches()
-        schur_mod.reset_path_counts()
-        final, s1, s2, _ = run_two_phase(prob32, plain=False, fused=True)
-        launches = ops.kernel_launches()
-        paths = dict(schur_mod.path_counts)
+    ops.reset_kernel_launches()
+    schur_mod.reset_path_counts()
+    final, s1, s2, _ = run_two_phase(prob32, plain=False, fused=True)
+    launches = ops.kernel_launches()
+    paths = dict(schur_mod.path_counts)
     check_result(final, (s1, s2), f"{label} f32 graphs")
     iters = s1.num_iterations + s2.num_iterations
     steps = paths.get("steps", 0)
@@ -1239,12 +1278,18 @@ def fused_phase(label, phase):
         raise AssertionError(f"{label} graphs: band solve taken")
     if label in LOOP_PATHS and launches["band_gram"]:
         raise AssertionError(f"{label} graphs: K3 launched on a loop closure")
-    weights2 = schur_mod.FactorWeights(*(w.double() for w in selection.result))
     state, _, cams, tables, plan, free, weights, huber = prob64
-    r1 = solve_fused(state, cams, tables, plan, free, weights, LMParams(), huber, plain=True)[1]
-    r2 = solve_fused(state, cams, tables, plan, free, weights2, LMParams(), huber, plain=True)[1]
+    with deterministic():
+        with Spy(tp_mod, "reweight_on_device") as selection:
+            final, d1, d2, _ = run_two_phase(prob32, plain=False, fused=True)
+        weights2 = schur_mod.FactorWeights(*(w.double() for w in selection.result))
+        r1 = solve_fused(state, cams, tables, plan, free, weights, LMParams(), huber,
+                         plain=True)[1]
+        r2 = solve_fused(state, cams, tables, plan, free, weights2, LMParams(), huber,
+                         plain=True)[1]
+    check_result(final, (d1, d2), f"{label} f32 graphs (deterministic)")
     cost_gaps = [abs(a.final_cost - b.final_cost) / b.final_cost
-                 for a, b in ((s1, r1), (s2, r2))]
+                 for a, b in ((d1, r1), (d2, r2))]
     if not max(cost_gaps) <= 1e-3:
         raise AssertionError(f"{label} graphs: final cost gaps {cost_gaps} to the f64 plain "
                              "run > 1e-3")
@@ -1409,9 +1454,66 @@ def run_session(dtype, plain, snapshot_at=None):
                 snapshot=snapshot[0] if snapshot else None)
 
 
-def graph_summary(what):
+class GraphFamilies:
+    """While active, counts the fused solves' cache entries built and graphs
+    captured by solve family: the caps pool of the problem the runner built
+    last ("local", "global", "pgo", "pgo_vf", "pgo_tracking"), or "mini_ba"
+    inside the bounding-box frontend's pending-object mini-BA ("other"
+    before any build)."""
+
+    def __enter__(self):
+        from obvi_slam_tpu_torch.frontend import bounding_box_frontend as bbf
+
+        self.counts = {}
+        family = [None]
+        runner_cls, fe_cls = ot.OfflineProblemRunner, bbf.FeatureBasedBoundingBoxFrontEnd
+        self.saved = [(runner_cls, "_build_problem", runner_cls._build_problem),
+                      (fe_cls, "_run_pending_mini_ba", fe_cls._run_pending_mini_ba),
+                      (lm_fused._Graphs, "_capture", lm_fused._Graphs._capture),
+                      (lm_fused, "_entry", lm_fused._entry)]
+        build, mini_ba, capture, entry = (fn for _, _, fn in self.saved)
+
+        def tally(what):
+            counts = self.counts.setdefault(family[0] or "other", dict(entries=0, captures=0))
+            counts[what] += 1
+
+        def build_problem(runner, pg, scope, key, **kw):
+            family[0] = key
+            return build(runner, pg, scope, key, **kw)
+
+        def run_mini_ba(fe, targets):
+            before, family[0] = family[0], "mini_ba"
+            try:
+                return mini_ba(fe, targets)
+            finally:
+                family[0] = before
+
+        def capture_counted(graphs, fn):
+            tally("captures")
+            return capture(graphs, fn)
+
+        def entry_counted(*a, **k):
+            out = entry(*a, **k)
+            if out[1]:
+                tally("entries")
+            return out
+
+        for (owner, name, _), fn in zip(self.saved, (build_problem, run_mini_ba,
+                                                      capture_counted, entry_counted)):
+            setattr(owner, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+        return False
+
+
+def graph_summary(what, families=None):
     """Prints and returns the fused solves' graph statistics since the last
-    lm_fused.reset_graph_stats(); fails unless graphs were replayed."""
+    lm_fused.reset_graph_stats(), with a ``GraphFamilies`` count by solve
+    family; fails unless graphs were replayed or if the families' counts do
+    not add up to the totals."""
     stats = dict(lm_fused.graph_stats)
     if not stats["replays"]:
         raise AssertionError(f"{what}: no CUDA graph replayed (the fused path was not taken)")
@@ -1420,6 +1522,16 @@ def graph_summary(what):
           f"({stats['capture_s'] * 1e3 / max(stats['captures'], 1):.2f} ms each), "
           f"{stats['replays']} replays, {stats['flag_reads']} flag reads, {stats['evictions']} "
           f"evictions; {stats['entries']} entries of {stats['bytes']} B held")
+    if families is not None:
+        by = families.counts
+        print(f"{what} graphs by solve family: " + "; ".join(
+            f"{name} {c['entries']} entries, {c['captures']} captures"
+            for name, c in sorted(by.items())))
+        for key in ("entries", "captures"):
+            total = stats["entries_built" if key == "entries" else key]
+            if sum(c[key] for c in by.values()) != total:
+                raise AssertionError(f"{what}: {key} by family {by} do not add up to {total}")
+        stats["families"] = {name: dict(c) for name, c in by.items()}
     return stats
 
 
@@ -1456,7 +1568,7 @@ def session_phase():
     torch.cuda.reset_peak_memory_stats()
     lm_fused.reset_graph_stats()
     try:
-        with BandSolveSpy() as band:
+        with BandSolveSpy() as band, GraphFamilies() as families:
             ops.reset_kernel_launches()
             run = run_session(np.float32, False,
                               snapshot_at=SESSION["n_frames"] - PROFILE_FRAMES)
@@ -1496,7 +1608,7 @@ def session_phase():
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched in the session phase")
     print(f"session launches: {launches}; K4 operand shapes {sorted(shapes)}")
-    graphs = graph_summary("session")
+    graphs = graph_summary("session", families)
     if not (ate < 0.5 * odom and ate < 0.05):
         raise AssertionError(f"session ATE {ate:.6f} m: not below half the odometry's "
                              f"({odom:.6f} m) and 0.05 m")
@@ -1797,10 +1909,11 @@ def objects_phase(tmp, exported):
     torch.cuda.reset_peak_memory_stats()
     lm_fused.reset_graph_stats()
     try:
-        ops.reset_kernel_launches()
-        run = run_objects(args, False, gt, gt_objects, stage=stage,
-                          snapshot_at=n_frames - PROFILE_FRAMES)
-        launches = ops.kernel_launches()
+        with GraphFamilies() as families:
+            ops.reset_kernel_launches()
+            run = run_objects(args, False, gt, gt_objects, stage=stage,
+                              snapshot_at=n_frames - PROFILE_FRAMES)
+            launches = ops.kernel_launches()
     finally:
         ops.bbox_residuals_and_jac, ops.reproj_residuals_and_jac = bbox_inner, reproj_inner
     peak = torch.cuda.max_memory_allocated()
@@ -1833,7 +1946,7 @@ def objects_phase(tmp, exported):
         f"{run['final_s']:.4f} s; launches {launches}, bbox {launches['bbox'] / n_frames:.2f} "
         f"per frame"
     )
-    graphs = graph_summary("objects")
+    graphs = graph_summary("objects", families)
     for r in log:
         if r.termination not in TERMINATION_NAMES.values():
             raise AssertionError(f"objects frame {r.frame_id}: termination {r.termination}")
@@ -1887,6 +2000,72 @@ def objects_phase(tmp, exported):
                 frames_per_s=len(online) / online_s, ate=ate, run=run,
                 cov_err=cov_err, cov_dim=cov_dim, ltm_path=args.long_term_map_output,
                 ltm_objects=sorted(loaded.ellipsoids), graphs=graphs)
+
+
+def mini_ba_padding_check():
+    """One pending-object mini-BA on the card in f64 under deterministic
+    algorithms, at the frontend's capacity buckets and at the pending set's
+    own sizes (``_bucket`` patched to the identity, as before the buckets):
+    the estimates within MINI_BA_PAD_TOL of their scale. The pending set
+    (MINI_BA_SET, asymmetric chairs, whose yaw the boxes observe) is
+    gathered by the frontend on ground-truth poses with its mini-BA off."""
+    from obvi_slam_tpu_torch.frontend import bounding_box_frontend as bbf
+
+    data, gt, _ = ot.synthetic_object_session(**MINI_BA_SET)
+    config = object_config()
+    std = np.array(CHAIR_PRIOR[1])
+    config.shape_dimension_priors = [ot.config.ShapeDimensionPrior(
+        "chair", np.array(MINI_BA_SET["dims"]), np.diag(std ** 2))]
+    assoc = config.feature_based_bb_association_params
+    assoc.min_observations, assoc.min_observations_for_local_est = 5, 3
+    assoc.min_overlapping_features_for_match = 3.0
+    pg = ot.PoseGraph(data.cameras, ot.config.shape_prior_map(config))
+    for i, pose in enumerate(gt):
+        pg.add_frame(i, pose)
+    fe = bbf.FeatureBasedBoundingBoxFrontEnd(
+        pg, assoc, config.bounding_box_covariance_generator_params,
+        config.geometric_similarity_scorer_params,
+        img_heights_and_widths={c: (480.0, 640.0) for c in data.cameras}, dtype=np.float64,
+        device=DEVICE)
+    fe._run_pending_mini_ba = lambda targets: None
+    hook = ot.frontend.make_bb_frontend_hook(fe)
+    for i in range(len(gt)):
+        hook(data, pg, i)
+    del fe._run_pending_mini_ba
+    targets = [i for i, p in enumerate(fe.pending) if p.object_estimate is not None]
+    if len(targets) < 2:
+        raise AssertionError(f"mini-BA padding: {len(targets)} pending estimates")
+    start = {i: fe.pending[i].object_estimate.copy() for i in targets}
+    shapes, inner, bucket = [], bbf.solve_fused, bbf._bucket
+
+    def spy(state, cams, tables, plan, free, **kw):
+        shapes.append((state.poses.shape[0], state.objects.shape[0], tables.bbox.capacity))
+        return inner(state, cams, tables, plan, free, **kw)
+
+    runs = {"padded": copy.deepcopy(fe), "unpadded": copy.deepcopy(fe)}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    bbf.solve_fused = spy
+    try:
+        runs["padded"]._run_pending_mini_ba(targets)
+        bbf._bucket = lambda n, minimum=16: max(n, 1)
+        runs["unpadded"]._run_pending_mini_ba(targets)
+    finally:
+        bbf.solve_fused, bbf._bucket = inner, bucket
+        torch.use_deterministic_algorithms(deterministic)
+    est = {k: np.stack([fe_.pending[i].object_estimate for i in targets])
+           for k, fe_ in runs.items()}
+    err = float(np.abs(est["padded"] - est["unpadded"]).max() / max(1.0, np.abs(
+        est["unpadded"]).max()))
+    moved = float(max(np.abs(est["padded"][k] - start[i]).max() for k, i in enumerate(targets)))
+    print(f"mini-BA padded against unpadded on {card_line()} (f64, deterministic): "
+          f"{len(targets)} pending objects, (poses, objects, boxes) {shapes[0]} against "
+          f"{shapes[1]}; estimates moved up to {moved:.3e}, apart by {err:.3e} of their "
+          f"scale (limit {MINI_BA_PAD_TOL:g})")
+    if len(shapes) != 2 or shapes[0] == shapes[1] or not (err <= MINI_BA_PAD_TOL) or (
+            moved <= 1e-6):
+        raise AssertionError(f"mini-BA padding: shapes {shapes}, difference {err}, moved {moved}")
+    return err
 
 
 def oracle_phase(tmp, exported):
@@ -2526,8 +2705,9 @@ def sharded_config(label, mesh):
     between a reset and a read of the launch counts, timed, its collectives
     recorded; each launched kernel against its plain version on this rank's
     operands; the f64 plain two-phase solve on the ranks, phase 2 with the
-    f32 run's selection, within 1e-3 of the f32 final costs. Returns (the
-    JSON result, the f32 final state)."""
+    f32 run's selection, within 1e-3 of the f32 final costs (both solves
+    under deterministic()). Returns (the JSON result, the f32 final
+    state)."""
     tag = f"{label}@{mesh.size} rank {mesh.rank}"
     kernels = PHASES[label][1]
     p64 = phase_problem(label, np.float64)
@@ -2565,6 +2745,7 @@ def sharded_config(label, mesh):
                       shape_live=tables.shape.mask)
     spies = {name: Spy(ops, WRAPPER_NAMES[name]) for name in kernels}
     with contextlib.ExitStack() as stack:
+        stack.enter_context(deterministic())
         for spy in spies.values():
             stack.enter_context(spy)
         selection = stack.enter_context(Spy(tp_mod, "reweight_on_device"))
@@ -2590,8 +2771,9 @@ def sharded_config(label, mesh):
     errs = check_kernels_on_shard(spies, tag)
 
     weights2 = schur_mod.FactorWeights(*(w.double() for w in selection.result))
-    _, r1 = solve(*sh64[:6], LMParams(), sh64[6], plain=True, mesh=mesh)
-    _, r2 = solve(*sh64[:5], weights2, LMParams(), sh64[6], plain=True, mesh=mesh)
+    with deterministic():
+        _, r1 = solve(*sh64[:6], LMParams(), sh64[6], plain=True, mesh=mesh)
+        _, r2 = solve(*sh64[:5], weights2, LMParams(), sh64[6], plain=True, mesh=mesh)
     gaps = [abs(a.final_cost - b.final_cost) / b.final_cost for a, b in ((s1, r1), (s2, r2))]
     if not max(gaps) <= 1e-3:
         raise AssertionError(f"{tag}: final cost gaps f32 kernels vs f64 plain {gaps} > 1e-3")
@@ -3314,6 +3496,7 @@ def main():
             str(Path(tmp.name) / "second_out"))
         print(f"[{time.perf_counter() - t_start:.1f} s] objects phase done")
         oracle_phase(tmp.name, exported["objects"])
+        mini_ba_padding_check()
         bbox_err, reproj_err = check_object_tables(
             objects["window"], objects["mini"], objects["mini_reproj"])
         errs["bbox"] = max(errs["bbox"], bbox_err)

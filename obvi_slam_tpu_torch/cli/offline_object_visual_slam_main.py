@@ -384,10 +384,14 @@ def write_outputs(session: Session) -> Optional[LongTermObjectMap]:
             _write_state(
                 pg, os.path.join(args.checkpoint_output_dir, "long_term_map_checkpoint.json")
             )
+        # At the extraction problem's own capacities: the reference passes
+        # the session's global pool so that its ahead-of-time compiled
+        # program fits, which the port has no need of, and the presized
+        # pool would only pad the dense reduced system and its host
+        # eigendecomposition (ltm.find_rank_deficiencies).
         ltm = extract_long_term_object_map(
             pg, session.config, session.bb_frontend.get_front_end_obj_map_data(),
-            prev_ltm=session.prev_ltm, caps=runner.caps_pool("global"),
-            device=args.device, plain=runner.plain,
+            prev_ltm=session.prev_ltm, device=args.device, plain=runner.plain,
         )
         if ltm is not None:
             ltm.save(args.long_term_map_output)

@@ -19,9 +19,13 @@ reference's default object data association):
 
 The association is host-side set logic; only the mini-BA runs on the
 device. Its problem has bounding-box and shape-prior factors only, a (1, 3)
-dummy point state and no reprojection rows, at the sizes of the pending set
-(the reference's capacity buckets exist for its jit signature; padding rows
-do not change the result).
+dummy point state and no reprojection rows. Its sizes are the reference's
+capacity buckets, grown monotonically over the session in
+``_mini_ba_caps``: poses from 8, objects and shape priors from 4 and boxes
+from 16 up by powers of two, and the plan's object pair caps. Padding rows
+are zero, not free and unreferenced, so the result equals an unpadded
+solve's up to roundoff, and the card's CUDA graphs (cached by shape) see a
+few shapes per session instead of one per pending set.
 
 With a ``mesh`` (the runner's, ``parallel.make_mesh``) every rank runs the
 frontend, and rank 0's mini-BA estimates, with the flags derived from them,
@@ -46,6 +50,7 @@ import scipy.linalg
 import torch
 
 from obvi_slam_tpu_torch import config as cfg
+from obvi_slam_tpu_torch import geometry as geo
 from obvi_slam_tpu_torch import optlog
 from obvi_slam_tpu_torch import types as T
 from obvi_slam_tpu_torch.frontend.visual_features import _pose_to_rt
@@ -53,8 +58,11 @@ from obvi_slam_tpu_torch.offline_data import RawBoundingBox
 from obvi_slam_tpu_torch.parallel import comm
 from obvi_slam_tpu_torch.pose_graph import PoseGraph
 from obvi_slam_tpu_torch.solver import HuberParams, build_schur_plan_host, solve, solve_fused
-from obvi_slam_tpu_torch.solver.problem import camera_bundle_from_pose_graph
+from obvi_slam_tpu_torch.solver.problem import _bucket, camera_bundle_from_pose_graph
 from obvi_slam_tpu_torch.timing import timer
+
+# The plan's object caps that the mini-BA pins (solver.plan.build_schur_plan).
+OB_PLAN_CAP_KEYS = ("ob_pair", "ob_cross", "ob_dest", "ob_slot_land", "ob_slot_c")
 
 NOT_INITIALIZED = 0
 ENOUGH_VIEWS_FOR_MERGE = 1
@@ -179,6 +187,9 @@ class FeatureBasedBoundingBoxFrontEnd:
         self.rank_differences: List[float] = []
 
         self.pending: List[PendingObject] = []
+        # The mini-BA's session capacities (the runner's caps pools' role):
+        # bucketed and max-accumulated over the session's mini-BAs.
+        self._mini_ba_caps: Dict[str, int] = {}
         # obj_id -> frame -> cam -> set(feature_ids)
         self.object_appearance: Dict[int, Dict[int, Dict[int, Set[int]]]] = {}
         # Restore LTM appearance payload (empty for the feature-based frontend,
@@ -447,7 +458,8 @@ class FeatureBasedBoundingBoxFrontEnd:
     def _run_pending_mini_ba(self, targets: List[int]):
         """One LM solve over the target pending ellipsoids: bounding-box
         factors of their observations and their class shape priors, the
-        observing poses fixed, no visual factors."""
+        observing poses fixed, no visual factors; at the session's
+        ``_mini_ba_caps``, which it grows."""
         est_params = self.params.pending_obj_estimator_params
         dtype, device = self.dtype, self.device
 
@@ -459,6 +471,9 @@ class FeatureBasedBoundingBoxFrontEnd:
         )
         pose_row_of = {f: i for i, f in enumerate(frames)}
         obj_row_of = {idx: i for i, idx in enumerate(targets)}
+        caps = self._mini_ba_caps
+        n_pose_cap = max(caps.get("n_pose", 0), _bucket(len(frames), minimum=8))
+        n_obj_cap = max(caps.get("n_obj", 0), _bucket(len(targets), minimum=4))
 
         bb_obj, bb_pose, bb_cam, bb_corners, bb_si = [], [], [], [], []
         for idx in targets:
@@ -467,19 +482,16 @@ class FeatureBasedBoundingBoxFrontEnd:
                 bb_obj.append(obj_row_of[idx])
                 bb_pose.append(pose_row_of[obs.frame_id])
                 bb_cam.append(ci)
-                bb_corners.append(
-                    [
-                        (obs.corners[0] - cx[ci]) / fx[ci],
-                        (obs.corners[1] - cx[ci]) / fx[ci],
-                        (obs.corners[2] - cy[ci]) / fy[ci],
-                        (obs.corners[3] - cy[ci]) / fy[ci],
-                    ]
-                )
+                bb_corners.append(obs.corners)
                 # Host matrix square root (scipy), as in the reference.
                 sqrt_inf = np.real(
                     scipy.linalg.sqrtm(np.linalg.inv(obs.covariance))
                 ) @ np.diag([fx[ci], fx[ci], fy[ci], fy[ci]])
                 bb_si.append(sqrt_inf)
+        rect_corners = geo.rectify_bb_corners(
+            torch.from_numpy(np.reshape(bb_corners, (-1, 4))),
+            *(torch.from_numpy(v[bb_cam]) for v in (fx, fy, cx, cy)),
+        ).numpy()
         sp_obj, sp_mean, sp_si = [], [], []
         for idx in targets:
             cls = self.pending[idx].semantic_class
@@ -490,34 +502,49 @@ class FeatureBasedBoundingBoxFrontEnd:
             sp_mean.append(mean)
             sp_si.append(np.real(scipy.linalg.sqrtm(np.linalg.inv(cov))))
 
+        bb_cap = max(caps.get("bbox", 0), _bucket(len(bb_obj)))
+        sh_cap = max(caps.get("shape", 0), _bucket(len(sp_obj), minimum=4))
         tables = T.empty_factor_tables(dtype=dtype, device=device)._replace(
             bbox=T.make_bounding_box_factors(
-                bb_obj, bb_pose, bb_cam, bb_corners, bb_si, dtype=dtype, device=device
+                bb_obj, bb_pose, bb_cam, rect_corners, bb_si, capacity=bb_cap, dtype=dtype,
+                device=device,
             ),
             shape=T.make_shape_prior_factors(
-                sp_obj, sp_mean, sp_si, dtype=dtype, device=device
+                sp_obj, sp_mean, sp_si, capacity=sh_cap, dtype=dtype, device=device
             ),
         )
 
         def dev(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
+        # Padding rows: zero, not free, referenced by no factor.
+        poses = np.zeros((n_pose_cap, T.POSE_DIM))
+        poses[: len(frames)] = np.stack([self.pg.robot_poses[f] for f in frames])
+        objects = np.zeros((n_obj_cap, T.ELLIPSOID_DIM))
+        objects[: len(targets)] = np.stack([self.pending[idx].object_estimate for idx in targets])
+        obj_free = np.zeros(n_obj_cap, dtype=bool)
+        obj_free[: len(targets)] = True
         state = T.BAState(
-            poses=dev(np.stack([self.pg.robot_poses[f] for f in frames]).astype(dtype)),
-            points=dev(np.zeros((1, 3), dtype=dtype)),
-            objects=dev(
-                np.stack([self.pending[idx].object_estimate for idx in targets]).astype(dtype)
-            ),
+            poses=dev(poses.astype(dtype)),
+            points=dev(np.zeros((1, T.POINT_DIM), dtype=dtype)),
+            objects=dev(objects.astype(dtype)),
         )
         free = T.FreeMasks(
-            poses=dev(np.zeros(len(frames), dtype=bool)),
+            poses=dev(np.zeros(n_pose_cap, dtype=bool)),
             points=dev(np.zeros(1, dtype=bool)),
-            objects=dev(np.ones(len(targets), dtype=bool)),
+            objects=dev(obj_free),
         )
+        plan_caps = {k: caps[k] for k in OB_PLAN_CAP_KEYS if k in caps}
         plan = build_schur_plan_host(
             [], [], tables.reproj.capacity, bb_pose, bb_obj, tables.bbox.capacity,
-            n_pose=len(frames), device=device,
+            plan_caps or None, n_pose=n_pose_cap, device=device,
         )
+        caps.update(n_pose=n_pose_cap, n_obj=n_obj_cap, bbox=bb_cap, shape=sh_cap)
+        for k, n in zip(OB_PLAN_CAP_KEYS, (
+            plan.ob_pair_pose.shape[0], plan.ob_cross_a.shape[0], plan.ob_dest_a.shape[0],
+            plan.ob_slot_gather.shape[0], plan.ob_slot_gather.shape[1],
+        )):
+            caps[k] = max(caps.get(k, 0), n)
         obj_params = est_params.object_residual_params
         huber = HuberParams(
             bbox=obj_params.object_observation_huber_loss_param,

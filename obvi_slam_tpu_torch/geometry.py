@@ -171,6 +171,24 @@ def pose_inverse(pose):
     return pose_from_rt(*pose_inverse_rt(pose))
 
 
+def rectify_pixel(pixel, fx, fy, cx, cy):
+    """(p - c) / f per axis: a pixel in rectified coordinates."""
+    return torch.stack([(pixel[..., 0] - cx) / fx, (pixel[..., 1] - cy) / fy], dim=-1)
+
+
+def rectify_bb_corners(corners, fx, fy, cx, cy):
+    """Box corners [x_min, x_max, y_min, y_max] in rectified coordinates."""
+    return torch.stack(
+        [
+            (corners[..., 0] - cx) / fx,
+            (corners[..., 1] - cx) / fx,
+            (corners[..., 2] - cy) / fy,
+            (corners[..., 3] - cy) / fy,
+        ],
+        dim=-1,
+    )
+
+
 def essential_matrix(pose1, pose2, cam1_r, cam1_t, cam2_r, cam2_t):
     """Essential matrix relating rectified pixels of the camera at pose1 and
     pose2 (``CalcEssentialMatrix``, vslam_math_util.h:174):

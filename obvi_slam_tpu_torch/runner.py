@@ -24,8 +24,11 @@ Counterpart of ``obvi_slam_tpu/runner.py`` (``OfflineProblemRunner``):
 The pose graph stays on the host; each window's tables go to ``device``.
 Timer names are the reference's (``timing.timer``). Every solve's LM
 iterations go to the optimization logger (``optlog``) when it has a
-directory. The reference's capacity presizing and device diff-sync are not
-ported.
+directory. Before frame 0 ``presize_session_caps`` seeds every caps pool
+from the raw data's counts, as the reference does, so that the windows,
+global BAs and PGO problems keep the session's capacities from the first
+frame and the card's CUDA graphs (cached by shape) see few shapes. The
+reference's device diff-sync is not ported.
 
 With a ``mesh`` (``parallel.make_mesh``) every rank runs the session
 identically on the host, and global-BA problems (window problems too with
@@ -40,7 +43,7 @@ from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -66,9 +69,11 @@ from obvi_slam_tpu_torch.solver import (
     solve_two_phase,
     solve_two_phase_fused,
 )
+from obvi_slam_tpu_torch.solver.plan import BAND_TP, _round_up
 from obvi_slam_tpu_torch.solver.problem import (
     Problem,
     Scope,
+    _bucket,
     build_problem,
     reweight_for_exclusions,
     update_caps_pool,
@@ -218,11 +223,141 @@ class OfflineProblemRunner:
         self.opt_log: List[OptLogRecord] = []
         self.visual_frontend = None  # set by run_optimization
         # Session high-water capacity pools, one per solve class ("local",
-        # "global"), passed as ``caps`` to build_problem.
+        # "global", "pgo", "pgo_vf", "pgo_tracking"), passed as ``caps`` to
+        # build_problem; seeded by presize_session_caps.
         self._caps_pools = {}
 
     def caps_pool(self, key: str) -> dict:
         return self._caps_pools.setdefault(key, {})
+
+    def _window_caps_seed(self, data: OfflineProblemData, lo: int, hi: int) -> Dict[str, int]:
+        """Upper bound of the caps of any problem over frames [lo, hi], from
+        the raw counts: the frontends admit only observations present in
+        the raw data, and objects by the raw bounding boxes. An
+        under-estimate is safe: caps are minimums and a larger window grows
+        its pool."""
+        obs = pairs = cross = feats = 0
+        max_frames_per_track = 0
+        tile_counts: Dict[int, int] = {}
+        band_ok = True
+        for track in data.feature_tracks.values():
+            frames_in = [f for f in track if lo <= f <= hi]
+            if not frames_in:
+                continue
+            feats += 1
+            nf = len(frames_in)
+            pairs += nf
+            cross += nf * nf
+            max_frames_per_track = max(max_frames_per_track, nf)
+            obs += sum(len(track[f]) for f in frames_in)
+            # Home band group of the track (pose row = frame - lo in a
+            # global window; local windows never reach the band layout).
+            fr0, fr1 = min(frames_in) - lo, max(frames_in) - lo
+            home = fr0 // BAND_TP
+            tile_counts[home] = tile_counts.get(home, 0) + 1
+            if fr1 - home * BAND_TP >= 2 * BAND_TP:
+                band_ok = False
+
+        bbs = sum(
+            sum(len(v) for v in by_cam.values())
+            for f, by_cam in data.bounding_boxes.items() if lo <= f <= hi
+        )
+        n_frames = hi - lo + 1
+        pose_cap = _bucket(n_frames + 1, minimum=8)
+        seed = {
+            "reproj": _bucket(max(obs, 1)),
+            "bbox": _bucket(max(bbs, 1)),
+            "shape": _bucket(16),
+            "ltm": _bucket(16),
+            "relpose": _bucket(n_frames + 1),
+            "n_pose": pose_cap,
+            "n_point": _bucket(max(feats, 1)),
+            "pt_pair": _round_up(pairs),
+            "pt_cross": _round_up(cross),
+            "pt_dest": _round_up(min(cross, (n_frames + 1) ** 2)),
+            "pt_slot_land": _round_up(feats),
+            "pt_slot_c": _round_up(max_frames_per_track, bucket=4),
+            # What a build with no boxes and no band layout gives, so that
+            # the key set is the same from the first build.
+            "n_obj": _bucket(1, minimum=8),
+            "ob_pair": _round_up(0),
+            "ob_cross": _round_up(0),
+            "ob_dest": _round_up(0),
+            "ob_slot_land": _round_up(0),
+            "ob_slot_c": _round_up(0, bucket=4),
+            "pt_band_lg": 0,
+            "rel_band_lg": 0,
+        }
+        if bbs:
+            # One object per raw box. The reference means to divide by the
+            # association's min_observations, but reads it from a config
+            # attribute that does not exist and so divides by 1; the port
+            # keeps its numbers.
+            n_obj = bbs
+            # The plan keeps one pair per (pose, object), so an object has at
+            # most n_frames + 1 pairs and at most as many as its boxes:
+            # sum(pairs_o^2) <= bbs * (n_frames + 1).
+            ob_cross = min(bbs * bbs, bbs * (n_frames + 1))
+            seed.update(
+                n_obj=_bucket(n_obj, minimum=8),
+                ob_pair=_round_up(bbs),
+                ob_cross=_round_up(ob_cross),
+                ob_dest=_round_up(min(ob_cross, (n_frames + 1) ** 2)),
+                ob_slot_land=_round_up(n_obj),
+                ob_slot_c=_round_up(min(bbs, n_frames + 1), bucket=4),
+                shape=_bucket(n_obj),
+            )
+        if pose_cap >= 3 * BAND_TP and band_ok and tile_counts:
+            # The band layout engages at this pose capacity: its group sizes
+            # (128-row steps; the relpose band holds <= 64 relpose and 64
+            # diagonal rows per group, plan._rel_band_layout).
+            seed["pt_band_lg"] = -(-max(tile_counts.values()) // 128) * 128
+            seed["rel_band_lg"] = 128
+        return seed
+
+    def _seed_pool(self, key: str, seed: Dict[str, int]) -> dict:
+        pool = self.caps_pool(key)
+        for k, v in seed.items():
+            pool[k] = max(pool.get(k, 0), int(v))
+        return pool
+
+    def presize_local_caps(self, data: OfflineProblemData) -> dict:
+        """Seeds the "local" pool from the first full window's raw counts
+        (frames [0, local_ba_window_size]), so that the growing windows of
+        the first frames share one shape."""
+        w = self.config.sliding_window_params.local_ba_window_size
+        return self._seed_pool("local", self._window_caps_seed(data, 0, w))
+
+    def presize_session_caps(
+        self, data: OfflineProblemData, max_frame_id: Optional[int] = None
+    ) -> dict:
+        """Seeds every session pool from the raw counts of the session's
+        frames, so that each solve family runs at the session's capacities
+        from its first problem: "local" from the first window, "global"
+        from frames [0, max_frame_id], and with PGO on global BA "pgo" and
+        "pgo_vf" as "global" and "pgo_tracking" from the largest tracking
+        window (poses_prior_to_window_to_keep_constant + 1 frames) at each
+        global-BA frequency step. Padding rows are masked, so the results
+        equal an unseeded session's up to roundoff. The seeds read the raw
+        data only: the ranks of a mesh agree without a collective."""
+        if max_frame_id is None:
+            max_frame_id = data.max_frame_id()
+        self.presize_local_caps(data)
+        session = self._window_caps_seed(data, 0, max_frame_id)
+        self._seed_pool("global", session)
+        en = self.config.optimization_factors_enabled_params
+        if en.use_pose_graph_on_global_ba or en.use_pose_graph_on_final_global_ba:
+            self._seed_pool("pgo", session)
+            self._seed_pool("pgo_vf", session)
+            n_const = max(1, en.poses_prior_to_window_to_keep_constant)
+            step = max(1, self.config.sliding_window_params.global_ba_frequency)
+            track_seed: Dict[str, int] = {}
+            for f in range(0, max_frame_id + 1, step):
+                ws = self._window_caps_seed(data, max(0, f - n_const), min(f, max_frame_id))
+                for k, v in ws.items():
+                    track_seed[k] = max(track_seed.get(k, 0), v)
+            self._seed_pool("pgo_tracking", track_seed)
+        return self._caps_pools
 
     def _build_problem(self, pg, scope, key: str, **build_kw) -> Problem:
         """build_problem at the session pool's capacities; grows the pool.
@@ -585,6 +720,7 @@ class OfflineProblemRunner:
             max_frame_id = min(lt.max_frame_id, max_frame_id)
 
         with timer("offline_runner_online_portion"):
+            self.presize_session_caps(data, max_frame_id)
             if start_at_frame == 0 and add_data_for_starting_frame:
                 self.add_frame_data(data, pg, 0, 0)
             for next_frame_id in range(max(1, start_at_frame), max_frame_id + 1):

@@ -14,6 +14,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+# Parameter block sizes: a pose [t, axis-angle], a point, and an ellipsoid
+# with a yaw-only orientation [x, y, z, yaw, dx, dy, dz].
+POSE_DIM = 6
+POINT_DIM = 3
+ELLIPSOID_DIM = 7
+
 
 class BAState(NamedTuple):
     """Optimizable state. Rows beyond the live counts are padding."""

@@ -228,7 +228,8 @@ def test_mini_ba_alone_matches_jax(monkeypatch):
     n_obs = sum(len(fe.pending[i].observations) for i in targets)
     assert seen["reproj_residuals_and_jac"] and all(
         s == (1, 0, 1) for s in seen["reproj_residuals_and_jac"])
-    assert all(s[:2] == (n_obs, n_obs) for s in seen["bbox_residuals_and_jac"])
+    # The box table at its capacity bucket (16 and up), as the reference's.
+    assert all(s[:2] == (pproblem._bucket(n_obs), n_obs) for s in seen["bbox_residuals_and_jac"])
 
 
 class TestObjectSessionAgainstJax:
@@ -239,12 +240,20 @@ class TestObjectSessionAgainstJax:
     @pytest.fixture(scope="class")
     def sessions(self):
         data, gt_poses, gt_objects = ot.synthetic_object_session(dims=ASYM_DIMS)
-        jax_runner, jax_pg, _, recorder = run_jax_session(
+        jax_runner, jax_pg, jax_fe, recorder = run_jax_session(
             to_jax_data(data), object_config(dims=ASYM_DIMS))
-        runner, pg, _ = run_port_session(data, object_config(pcfg, ASYM_DIMS))
+        runner, pg, fe = run_port_session(data, object_config(pcfg, ASYM_DIMS))
         return dict(data=data, gt=gt_poses, gt_objects=gt_objects, jax_runner=jax_runner,
                     jax_pg=jax_pg, records=recorder.records, builds=recorder.builds,
-                    runner=runner, pg=pg)
+                    runner=runner, pg=pg, jax_fe=jax_fe, fe=fe)
+
+    def test_presized_caps_equal_jax(self, sessions):
+        """Both runners presize: the session's caps pools and, after the
+        chained session, the mini-BA's bucketed caps equal the JAX ones."""
+        assert sessions["runner"]._caps_pools == sessions["jax_runner"]._caps_pools
+        caps = sessions["fe"]._mini_ba_caps
+        assert caps == sessions["jax_fe"]._mini_ba_caps
+        assert caps["n_pose"] >= 8 and caps["n_obj"] >= 4 and caps["bbox"] >= 16
 
     @pytest.mark.parametrize("which", ["first object window", "sliding window with objects"])
     def test_window_problem_equals_jax(self, sessions, which):

@@ -57,15 +57,23 @@ def sharded(request, config_path, tmp_path_factory):
 
 def jax_mesh_run(shard_local_ba):
     """The JAX runner on 8 virtual devices (its host loop, the CPU's
-    default), unpresized as the port's."""
+    default), presizing as the port's: (poses, (key, pool before the
+    build) of every build)."""
     data, _, _ = make_session(**SESSION)
     config = small_config()
     runner = jrunner.OfflineProblemRunner(
         config, mesh=jpar.make_mesh(jax.devices()[:8]), shard_local_ba=shard_local_ba)
-    runner.presize_session_caps = lambda *a, **k: runner._caps_pools
+    pools = []
+    build = runner.build_problem_synced
+
+    def record(pg_, scope, key, **kw):
+        pools.append((key, dict(runner.caps_pool(key))))
+        return build(pg_, scope, key, **kw)
+
+    runner.build_problem_synced = record
     pg = JaxPoseGraph(data.cameras)
     assert runner.run_optimization(data, pg, visual_frontend=_jax_frontend(runner, config, data))
-    return _poses(pg, data.max_frame_id() + 1)
+    return _poses(pg, data.max_frame_id() + 1), pools
 
 
 def test_sharded_runner_matches_single_process_and_jax(sharded, single):
@@ -76,7 +84,10 @@ def test_sharded_runner_matches_single_process_and_jax(sharded, single):
     np.testing.assert_allclose(poses, single, rtol=1e-7, atol=1e-9)
     # The reference's tolerance for its runner on a mesh against one device
     # (tests/test_runner_e2e.py::test_sharded_global_ba_matches_single_device).
-    np.testing.assert_allclose(poses, jax_mesh_run(shard_local_ba), rtol=1e-7, atol=1e-9)
+    jax_poses, jax_pools = jax_mesh_run(shard_local_ba)
+    np.testing.assert_allclose(poses, jax_poses, rtol=1e-7, atol=1e-9)
+    # Both presize: every rank's pool at each build is the JAX runner's.
+    assert results[0]["pools"] == results[1]["pools"] == jax_pools
 
 
 def test_sharded_runner_writes_once(sharded):

@@ -200,10 +200,24 @@ def _trajectory(pg, n):
     return np.stack([pg.get_robot_pose(i) for i in range(n)])
 
 
+def record_port_pools(runner):
+    """(key, pool before the build) of every problem the port's runner
+    builds, in order."""
+    pools = []
+    build = runner._build_problem
+
+    def record(pg, scope, key, **kw):
+        pools.append((key, dict(runner.caps_pool(key))))
+        return build(pg, scope, key, **kw)
+
+    runner._build_problem = record
+    return pools
+
+
 class TestSessionAgainstJax:
-    """One session through both runners: the JAX one on its fused solver
-    path, without device sync and with presize_session_caps stubbed (as
-    tests/test_runner_e2e.py's unpresized run), the port's on the CPU."""
+    """One session through both runners, both presizing their caps pools:
+    the JAX one on its fused solver path without device sync, the port's
+    on the CPU."""
 
     @pytest.fixture(scope="class")
     def sessions(self, config_path):
@@ -212,7 +226,6 @@ class TestSessionAgainstJax:
         jax_runner = jrunner.OfflineProblemRunner(
             config, use_fused_solver=True, use_device_sync=False
         )
-        jax_runner.presize_session_caps = lambda *a, **k: jax_runner._caps_pools
         builds = []
         inner = jax_runner.build_problem_synced
 
@@ -231,12 +244,22 @@ class TestSessionAgainstJax:
         TimerRegistry.instance().reset()
         ours_data, _, _ = ot.synthetic_session(**SESSION)
         runner = ot.OfflineProblemRunner(ot.config.read_config(config_path), device="cpu")
+        pools = record_port_pools(runner)
         pg = ot.PoseGraph(ours_data.cameras)
         assert runner.run_optimization(
             ours_data, pg, visual_frontend=prunner.visual_frontend_for(runner, ours_data)
         )
         return dict(data=data, gt=gt_poses, jax_runner=jax_runner, jax_pg=jax_pg,
-                    runner=runner, pg=pg, builds=builds)
+                    runner=runner, pg=pg, builds=builds, pools=pools)
+
+    def test_pool_at_every_build_equals_jax(self, sessions):
+        """Both runners presize: at every build the port's pool is the JAX
+        runner's, and the first window already has the session's caps."""
+        pools = sessions["pools"]
+        assert len(pools) == len(sessions["builds"]) > 2
+        for (key, ours), build in zip(pools, sessions["builds"]):
+            assert ours == build[2], key
+        assert pools[0][1] == sessions["runner"].caps_pool(pools[0][0])
 
     def test_solve_records_match(self, sessions):
         ours, ref = sessions["runner"].opt_log, sessions["jax_runner"].opt_log
@@ -323,14 +346,14 @@ def jax_f32_session():
         jax_runner = jrunner.OfflineProblemRunner(
             config, dtype=np.float32, use_fused_solver=True, use_device_sync=False
         )
-        jax_runner.presize_session_caps = lambda *a, **k: jax_runner._caps_pools
         recorder = SolveRecorder(jax_runner)
         jax_pg = JaxPoseGraph(data.cameras)
         assert jax_runner.run_optimization(
             data, jax_pg, visual_frontend=_jax_frontend(jax_runner, config, data))
     finally:
         lm_fused.solve_two_phase_fused = fused
-    return dict(data=data, runner=jax_runner, pg=jax_pg, records=recorder.records)
+    return dict(data=data, runner=jax_runner, pg=jax_pg, records=recorder.records,
+                builds=recorder.builds)
 
 
 def test_f32_session_against_jax_f32(jax_f32_session):
@@ -344,10 +367,14 @@ def test_f32_session_against_jax_f32(jax_f32_session):
     for dtype in (np.float32, np.float64):
         ours_data, _, _ = ot.synthetic_session(**SESSION)
         runner = ot.OfflineProblemRunner(small_config(ot.config), dtype=dtype, device="cpu")
+        pools = record_port_pools(runner)
         pg = ot.PoseGraph(ours_data.cameras)
         assert runner.run_optimization(
             ours_data, pg, visual_frontend=prunner.visual_frontend_for(runner, ours_data))
         runs[dtype] = (runner, pg)
+        # Both runners presize: the port's pool at each build is the JAX one's.
+        assert [(k, p) for k, p in pools] == [
+            (b[2], b[3]) for b in jax_f32_session["builds"]], dtype
     ours, ref = runs[np.float32][0].opt_log, jax_runner.opt_log
     assert [(r.frame_id, r.phase, r.attempt) for r in ours] == [
         (r.frame_id, r.phase, r.attempt) for r in ref]

@@ -83,6 +83,14 @@ def job_runner(mesh, inputs):
         ot.config.read_config(inputs["config"]), hooks, device="cpu", mesh=mesh,
         shard_local_ba=inputs["shard_local_ba"],
         use_fused_solver=inputs.get("use_fused_solver"))
+    pools = []  # (key, pool before the build) of every build
+    build = runner._build_problem
+
+    def record(pg_, scope, key, **kw):
+        pools.append((key, dict(runner.caps_pool(key))))
+        return build(pg_, scope, key, **kw)
+
+    runner._build_problem = record
     pg = ot.PoseGraph(data.cameras)
     assert runner.run_optimization(data, pg, visual_frontend=visual_frontend_for(runner, data))
     ilf.write_all()
@@ -91,7 +99,7 @@ def job_runner(mesh, inputs):
     return dict(poses=np.stack([pg.get_robot_pose(i) for i in range(n)]),
                 opt_log=[(r.frame_id, r.phase, r.final_cost, r.iterations)
                          for r in runner.opt_log],
-                checkpoints=checkpoints)
+                checkpoints=checkpoints, pools=pools)
 
 
 def perturb_mini_ba(delta):
