@@ -338,7 +338,8 @@ def build_session(args: argparse.Namespace, *, plain: bool = False) -> Session:
 
 def run_session(session: Session) -> bool:
     """``run_optimization`` over the session, under torch.profiler when
-    ``--profile_trace_dir`` is given (a Chrome trace, ``trace.json``)."""
+    ``--profile_trace_dir`` is given (a Chrome trace, ``trace.json``, with
+    the program's spans as ranges ``obvi/<name>`` and their frame ids)."""
     def run():
         return session.runner.run_optimization(
             session.data, session.pg, visual_frontend=session.visual_frontend
@@ -354,7 +355,8 @@ def run_session(session: Session) -> bool:
     activities = [ProfilerActivity.CPU]
     if torch.device(session.args.device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    # Shapes recorded: the spans' ranges (obvi/<name>) carry their frame ids.
+    with profile(activities=activities, record_shapes=True) as prof:
         ok = run()
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
     return ok

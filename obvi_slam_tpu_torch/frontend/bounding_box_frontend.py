@@ -58,8 +58,9 @@ from obvi_slam_tpu_torch.offline_data import RawBoundingBox
 from obvi_slam_tpu_torch.parallel import comm
 from obvi_slam_tpu_torch.pose_graph import PoseGraph
 from obvi_slam_tpu_torch.solver import HuberParams, build_schur_plan_host, solve, solve_fused
+from obvi_slam_tpu_torch.solver.lm_fused import _map
 from obvi_slam_tpu_torch.solver.problem import _bucket, camera_bundle_from_pose_graph
-from obvi_slam_tpu_torch.timing import timer
+from obvi_slam_tpu_torch.timing import HOST_WAIT, timer
 
 # The plan's object caps that the mini-BA pins (solver.plan.build_schur_plan).
 OB_PLAN_CAP_KEYS = ("ob_pair", "ob_cross", "ob_dest", "ob_slot_land", "ob_slot_c")
@@ -460,11 +461,20 @@ class FeatureBasedBoundingBoxFrontEnd:
         factors of their observations and their class shape priors, the
         observing poses fixed, no visual factors; at the session's
         ``_mini_ba_caps``, which it grows."""
+        with timer("mini_ba_build"):
+            args = self._build_mini_ba(targets)
+        with timer("mini_ba_solve"):
+            self._solve_mini_ba(targets, *args)
+
+    def _build_mini_ba(self, targets: List[int]):
+        """The mini-BA's problem, assembled on the host and then copied to the
+        device: (state, cams, tables, plan, free, huber, LM parameters,
+        object row of each target)."""
         est_params = self.params.pending_obj_estimator_params
-        dtype, device = self.dtype, self.device
+        dtype, device = self.dtype, "cpu"
 
         cams, cam_idx_map = camera_bundle_from_pose_graph(self.pg, dtype, device=device)
-        fx, fy, cx, cy = (x.cpu().numpy() for x in (cams.fx, cams.fy, cams.cx, cams.cy))
+        fx, fy, cx, cy = (x.numpy() for x in (cams.fx, cams.fy, cams.cx, cams.cy))
 
         frames = sorted(
             {obs.frame_id for idx in targets for obs in self.pending[idx].observations}
@@ -555,7 +565,15 @@ class FeatureBasedBoundingBoxFrontEnd:
         from obvi_slam_tpu_torch.runner import lm_params_from_config
 
         lm_params = lm_params_from_config(est_params.solver_params)
-        if torch.device(device).type == "cuda":
+        with timer("problem_build_upload"):
+            state, cams, tables, plan, free = _map(lambda t: t.to(self.device),
+                                                   (state, cams, tables, plan, free))
+        return state, cams, tables, plan, free, huber, lm_params, obj_row_of
+
+    def _solve_mini_ba(self, targets, state, cams, tables, plan, free, huber, lm_params,
+                       obj_row_of):
+        """The mini-BA's LM solve; the new estimates go to the pending objects."""
+        if torch.device(self.device).type == "cuda":
             # The fused solve (CUDA graphs), with records when the logger
             # reads them, as the reference's on an accelerator.
             new_state, summary = solve_fused(
@@ -570,7 +588,8 @@ class FeatureBasedBoundingBoxFrontEnd:
             optlog.PENDING_ESTIMATOR_TYPE, "_".join(str(t) for t in targets), summary,
             7 * len(targets),
         )
-        new_objects = new_state.objects.cpu().numpy().astype(np.float64)
+        with timer(HOST_WAIT):
+            new_objects = new_state.objects.cpu().numpy().astype(np.float64)
         for idx in targets:
             self.pending[idx].object_estimate = new_objects[obj_row_of[idx]].copy()
 

@@ -22,7 +22,9 @@ Counterpart of ``obvi_slam_tpu/runner.py`` (``OfflineProblemRunner``):
   merge loop: while the object_merger hook merges -> full re-optimization
 
 The pose graph stays on the host; each window's tables go to ``device``.
-Timer names are the reference's (``timing.timer``). Every solve's LM
+Timer names are the reference's (``timing.timer``); the port's spans nest
+inside them and carry the frame id, which ``add_frame_data`` and
+``run_optimization_iteration`` set (``timing.set_frame``). Every solve's LM
 iterations go to the optimization logger (``optlog``) when it has a
 directory. Before frame 0 ``presize_session_caps`` seeds every caps pool
 from the raw data's counts, as the reference does, so that the windows,
@@ -79,7 +81,7 @@ from obvi_slam_tpu_torch.solver.problem import (
     update_caps_pool,
     write_back,
 )
-from obvi_slam_tpu_torch.timing import timer
+from obvi_slam_tpu_torch.timing import HOST_WAIT, set_frame, timer
 
 logger = logging.getLogger(__name__)
 
@@ -122,7 +124,9 @@ def log_iterations(opt_type: str, opt_id, summary, problem: Problem):
     ilf = optlog.IterationLoggerFactory.instance()
     if ilf.enabled:
         f = problem.free
-        n_free = int(6 * f.poses.sum() + 3 * f.points.sum() + 7 * f.objects.sum())
+        n_free = 6 * f.poses.sum() + 3 * f.points.sum() + 7 * f.objects.sum()
+        with timer(HOST_WAIT):
+            n_free = int(n_free)
         ilf.log_iterations(opt_type, str(opt_id), summary, n_free)
 
 
@@ -451,6 +455,22 @@ class OfflineProblemRunner:
         """Adds a frame: its pose (the initial estimate's delta from the
         previous frame chained onto the optimized previous pose), the
         odometry factor, then the frontends' observations."""
+        set_frame(frame_to_add)
+        with timer("frame_pose_add"):
+            self._add_frame_pose(data, pg, frame_to_add)
+        if self.visual_frontend is not None:
+            with timer("visual_frontend_add_obs"):
+                self.visual_frontend.add_visual_feature_observations(
+                    data, pg, min_frame_id, frame_to_add
+                )
+        if self.hooks.bb_frontend is not None:
+            with timer("bb_frontend_hook"):
+                self.hooks.bb_frontend(data, pg, frame_to_add)
+        if self.hooks.frame_data_extra is not None:
+            self.hooks.frame_data_extra(pg, frame_to_add)
+
+    def _add_frame_pose(self, data: OfflineProblemData, pg: PoseGraph, frame_to_add):
+        """The frame's pose and its odometry factor."""
         init_pose = data.get_robot_pose_estimate(frame_to_add)
         if init_pose is None:
             raise ValueError(f"no initial pose estimate for frame {frame_to_add}")
@@ -487,15 +507,6 @@ class OfflineProblemRunner:
                 )
                 pg.add_pose_factor(frame_to_add - 1, frame_to_add, rel, cov)
 
-        if self.visual_frontend is not None:
-            self.visual_frontend.add_visual_feature_observations(
-                data, pg, min_frame_id, frame_to_add
-            )
-        if self.hooks.bb_frontend is not None:
-            self.hooks.bb_frontend(data, pg, frame_to_add)
-        if self.hooks.frame_data_extra is not None:
-            self.hooks.frame_data_extra(pg, frame_to_add)
-
     # ------------------------------------------------------------------
     def run_optimization_iteration(
         self,
@@ -506,6 +517,7 @@ class OfflineProblemRunner:
         max_frame_id: int,
         attempt_num: int = 0,
     ) -> bool:
+        set_frame(next_frame_id)
         iteration_params = self._iteration_params(next_frame_id, max_frame_id)
         global_ba = self._gba_checker(next_frame_id, max_frame_id)
         en = self.config.optimization_factors_enabled_params
@@ -541,7 +553,8 @@ class OfflineProblemRunner:
             with timer(f"phase_one_{tag}_build_opt"):
                 problem = self._build_problem(pg, scope, key)
                 shard = problem if mesh is None else sharding.shard_problem(problem, mesh)
-            snapshot = pg.snapshot_values()
+            with timer("window_ba_write_back"):
+                snapshot = pg.snapshot_values()
             if two_phase and self.use_fused_solver is not False:
                 # Both phases in one call; the timer covers both.
                 with timer(f"phase_one_{tag}_solve_opt"):
@@ -560,21 +573,22 @@ class OfflineProblemRunner:
                         mesh=mesh,
                     )
                 self._log_solve(problem, summary, next_frame_id, global_ba, 1, attempt_num)
-            write_back(pg, problem, state)
+            with timer("window_ba_write_back"):
+                write_back(pg, problem, state)
 
-            # Jump detection -> full revert.
-            if iteration_params.allow_reversion_after_detecting_jumps:
-                if not self._consecutive_poses_stable(
-                    pg,
-                    scope.min_frame_id,
-                    scope.max_frame_id,
-                    iteration_params.consecutive_pose_transl_tol,
-                    iteration_params.consecutive_pose_orient_tol,
-                ):
-                    logger.warning(
-                        "Jump detected after optimizing frame %d; reverting", next_frame_id
-                    )
-                    pg.restore_values(snapshot)
+                # Jump detection -> full revert.
+                if iteration_params.allow_reversion_after_detecting_jumps:
+                    if not self._consecutive_poses_stable(
+                        pg,
+                        scope.min_frame_id,
+                        scope.max_frame_id,
+                        iteration_params.consecutive_pose_transl_tol,
+                        iteration_params.consecutive_pose_orient_tol,
+                    ):
+                        logger.warning(
+                            "Jump detected after optimizing frame %d; reverting", next_frame_id
+                        )
+                        pg.restore_values(snapshot)
 
         if self.hooks.visualization is not None:
             self.hooks.visualization(pg, "AFTER_EACH_OPTIMIZATION", next_frame_id)
@@ -724,6 +738,7 @@ class OfflineProblemRunner:
             if start_at_frame == 0 and add_data_for_starting_frame:
                 self.add_frame_data(data, pg, 0, 0)
             for next_frame_id in range(max(1, start_at_frame), max_frame_id + 1):
+                set_frame(next_frame_id)
                 with timer("optimization_iteration"):
                     window_start = provide_optimization_window(
                         next_frame_id, max_frame_id, self.config.sliding_window_params

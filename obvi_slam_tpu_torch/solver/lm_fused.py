@@ -45,6 +45,7 @@ from obvi_slam_tpu_torch.solver.lm import (
     LMParams,
     LMSummary,
 )
+from obvi_slam_tpu_torch.timing import HOST_WAIT, timer
 from obvi_slam_tpu_torch.types import BAState
 
 
@@ -94,7 +95,9 @@ def solve(
     automatic path choice) and ``mesh`` are passed to compute_step."""
     if weights is None:
         weights = schur_mod.ones_weights(tables, dtype=state.poses.dtype)
-    cost = float(_cost(state, cams, tables, weights, huber, mesh))
+    cost = _cost(state, cams, tables, weights, huber, mesh)
+    with timer(HOST_WAIT):
+        cost = float(cost)
     summary = LMSummary(initial_cost=cost, final_cost=cost)
     if params.max_num_iterations == 0:
         summary.termination = "MAX_ITERATIONS"
@@ -115,9 +118,9 @@ def solve(
         new_state = BAState(*(x + d * m for x, d, m in zip(state, delta, free_cols)))
         new_cost = _cost(new_state, cams, tables, weights, huber, mesh)
         # The one device -> host readback of the iteration.
-        model_change, grad_max, new_cost, step2, x2 = torch.stack(
-            [model_change, grad_max, new_cost, _sq(delta), _sq(state)]
-        ).tolist()
+        scalars = torch.stack([model_change, grad_max, new_cost, _sq(delta), _sq(state)])
+        with timer(HOST_WAIT):
+            model_change, grad_max, new_cost, step2, x2 = scalars.tolist()
         step_norm, x_norm = math.sqrt(step2), math.sqrt(x2)
 
         cost_change = cost - new_cost
@@ -278,8 +281,9 @@ def _split_params(params: LMParams, dtype, device, with_records: bool):
     """LMParams -> (dyn vector on ``device`` in ``dtype``, static part). The
     numeric fields ride as one tensor, so that solves with other numbers
     (phases, PGO) replay the same graph."""
-    dyn = torch.tensor([float(getattr(params, f)) for f in _DYN_ORDER], dtype=dtype,
-                       device=device)
+    with timer(HOST_WAIT):  # a copy from pageable host memory waits on the stream
+        dyn = torch.tensor([float(getattr(params, f)) for f in _DYN_ORDER], dtype=dtype,
+                           device=device)
     statics = _StaticParams(
         allow_non_monotonic_steps=bool(params.allow_non_monotonic_steps),
         rec_cap=max(int(params.max_num_iterations), 1) if with_records else 1,
@@ -482,13 +486,15 @@ _graph_cache: "OrderedDict[tuple, _Graphs]" = OrderedDict()
 _side_streams: dict = {}
 # Since the last reset_graph_stats(): entries built, graphs captured and the
 # seconds their captures took, graph replays, reads of the running flag,
-# entries evicted; and now: entries held and their bytes.
+# entries evicted, and ``lm_iterations``: the LM iterations of every fused
+# solve whose summary was read back (each phase of a two-phase solve; on the
+# CPU too); and now: entries held and their bytes.
 graph_stats: dict = {}
 
 
 def reset_graph_stats() -> None:
     graph_stats.update(entries_built=0, captures=0, capture_s=0.0, replays=0, flag_reads=0,
-                       evictions=0)
+                       evictions=0, lm_iterations=0)
     graph_stats.update(entries=len(_graph_cache),
                        bytes=sum(e.bytes for e in _graph_cache.values()))
 
@@ -545,12 +551,13 @@ class _Graphs:
         device = self.carry.cost.device
         reserved = torch.cuda.memory_reserved(device)
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            fn()
-        finally:
-            graph.capture_end()
+        with timer("fused_capture"):
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                fn()
+            finally:
+                graph.capture_end()
         graph_stats["captures"] += 1
         graph_stats["capture_s"] += time.perf_counter() - t0
         grown = torch.cuda.memory_reserved(device) - reserved
@@ -601,7 +608,9 @@ def _replay_loop(entry, name, fn, max_it):
             entry.run(name, fn)
             done += 1
         graph_stats["flag_reads"] += 1
-        if not bool(entry.carry.running):
+        with timer(HOST_WAIT):
+            running = bool(entry.carry.running)
+        if not running:
             return
 
 
@@ -673,9 +682,10 @@ def _fused_core(state, cams, tables, plan, free, weights, params, huber, dense_s
         body = _body_of(inputs, statics, huber, dense_schur, plain)
         return _finished(_run_eager(_carry_of(inputs, statics, huber), body))
 
-    key = _graph_key("solve", state, plan, inputs, statics, huber, dense_schur, plain)
     with _OnSideStream(device):
-        entry, built = _entry(key, inputs, lambda p: _carry_of(p, statics, huber))
+        with timer("fused_graph_entry"):
+            key = _graph_key("solve", state, plan, inputs, statics, huber, dense_schur, plain)
+            entry, built = _entry(key, inputs, lambda p: _carry_of(p, statics, huber))
         p, c = entry.inputs, entry.carry
         body = _body_of(p, statics, huber, dense_schur, plain)
         if not built:
@@ -714,10 +724,12 @@ def _two_phase_core(state, cams, tables, plan, free, weights, aux, params1, para
         final2 = _run_eager(_carry_of(p2, st2, huber), body_of(p2, st2))
         return _finished(final1), _finished(final2)
 
-    key = _graph_key("two_phase", state, plan, inputs, (st1, st2), huber, dense_schur, plain,
-                     extra=(tp_cfg,))
     with _OnSideStream(device):
-        entry, built = _entry(key, inputs, lambda p: _carry_of(p, st1, huber), two_phase=True)
+        with timer("fused_graph_entry"):
+            key = _graph_key("two_phase", state, plan, inputs, (st1, st2), huber, dense_schur,
+                             plain, extra=(tp_cfg,))
+            entry, built = _entry(key, inputs, lambda p: _carry_of(p, st1, huber),
+                                  two_phase=True)
         p, c, out1 = entry.inputs, entry.carry, entry.out1
 
         def switch():
@@ -752,6 +764,7 @@ def _summary(values, with_records: bool) -> LMSummary:
     """LMSummary from ``_packed``'s host values."""
     n_rec = (len(values) - 6) // 5
     init_cost, final_cost, it, n_success, n_fail, term = values[:6]
+    graph_stats["lm_iterations"] += int(it)
     summary = LMSummary(initial_cost=init_cost, final_cost=final_cost,
                         num_iterations=int(it), num_successful_steps=int(n_success),
                         num_unsuccessful_steps=int(n_fail),
@@ -802,7 +815,9 @@ def solve_two_phase_fused(
     final1, _, final2, _ = solve_two_phase_jit(
         state, cams, tables, plan, free, weights, aux, params1, params2, huber, tp_cfg,
         dense_schur=dense_schur, with_records=with_records, plain=plain)
-    host = torch.cat([_packed(final1), _packed(final2)]).cpu().tolist()
+    packed = torch.cat([_packed(final1), _packed(final2)])
+    with timer(HOST_WAIT):
+        host = packed.cpu().tolist()
     half = len(host) // 2
     return (final2.state, _summary(host[:half], with_records),
             _summary(host[half:], with_records))
@@ -826,8 +841,13 @@ def solve_fused(
     if weights is None:
         weights = schur_mod.ones_weights(tables, dtype=state.poses.dtype)
     if params.max_num_iterations == 0:
-        cost = float(_local_cost(state, cams, tables, weights, huber))
+        cost = _local_cost(state, cams, tables, weights, huber)
+        with timer(HOST_WAIT):
+            cost = float(cost)
         return state, LMSummary(initial_cost=cost, final_cost=cost, termination="MAX_ITERATIONS")
     final, _ = solve_fused_jit(state, cams, tables, plan, free, weights, params, huber,
                                dense_schur=dense_schur, with_records=with_records, plain=plain)
-    return final.state, _summary(_packed(final).cpu().tolist(), with_records)
+    packed = _packed(final)
+    with timer(HOST_WAIT):
+        host = packed.cpu().tolist()
+    return final.state, _summary(host, with_records)

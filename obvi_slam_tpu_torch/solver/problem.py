@@ -21,13 +21,17 @@ Selection rules, as in the reference:
 
 Capacities are pinned minimums (``caps``, a session pool grown with
 ``update_caps_pool``), so the port's tables and plans equal the reference
-runner's. PGO passes its synthesized relative-pose chain and relpose Huber
-delta (``synthesized_relpose``, ``relpose_huber_override``). Not ported:
+runner's. A build assembles the tables and weights on the host, builds the
+plan there, then copies everything to ``device``, each step under its own
+span (``problem_build_assemble``, ``_plan``, ``_upload``). PGO passes its
+synthesized relative-pose chain and relpose Huber delta
+(``synthesized_relpose``, ``relpose_huber_override``). Not ported:
 host-only builds and the row registry of the reference's device diff-sync.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Set, Tuple
 
@@ -43,9 +47,11 @@ from obvi_slam_tpu_torch.pose_graph import (
     PoseGraph,
     batched_sqrt_inf,
 )
+from obvi_slam_tpu_torch.solver.lm_fused import _map
 from obvi_slam_tpu_torch.solver.plan import SchurPlan, build_schur_plan_host
 from obvi_slam_tpu_torch.solver.schur import FactorWeights, HuberParams
 from obvi_slam_tpu_torch.solver.two_phase import TwoPhaseAux
+from obvi_slam_tpu_torch.timing import HOST_WAIT, timer
 
 PLAN_CAP_KEYS = (
     "pt_pair", "pt_cross", "pt_dest", "pt_slot_land", "pt_slot_c", "ob_pair", "ob_cross",
@@ -300,6 +306,29 @@ def _build_problem_impl(
     pg, scope, residual_params, excluded, dtype, caps, synthesized_relpose,
     relpose_huber_override, device,
 ) -> Problem:
+    """The host tables and weights, the Schur plan, then every host-to-device
+    copy of the build, each under its own span."""
+    with timer("problem_build_assemble"):
+        problem, plan_args = _assemble_host(
+            pg, scope, residual_params, excluded, dtype, caps, synthesized_relpose,
+            relpose_huber_override,
+        )
+    with timer("problem_build_plan"):
+        plan = build_schur_plan_host(**plan_args, device="cpu")
+    with timer("problem_build_upload"):
+        on_device = _map(lambda t: t.to(device), dict(
+            plan=plan, **{k: getattr(problem, k)
+                          for k in ("state", "cams", "tables", "free", "weights", "aux")}))
+        return dataclasses.replace(problem, **on_device)
+
+
+def _assemble_host(
+    pg, scope, residual_params, excluded, dtype, caps, synthesized_relpose,
+    relpose_huber_override,
+):
+    """The window's Problem on the host (CPU tensors, no plan) and the
+    arguments of its ``build_schur_plan_host``."""
+    device = "cpu"  # _build_problem_impl uploads
     cam_ids, cam_arrays = _camera_arrays(pg, dtype)
     cams = T.make_camera_bundle(*cam_arrays, dtype=dtype, device=device)
     fx, fy, cx, cy = cam_arrays[2:]
@@ -490,11 +519,10 @@ def _build_problem_impl(
     weights_np = (rp_w, bb_w, sh_w, rl_w, lt_w)
     weights = _weight_vectors(weights_np, (rp_cap, bb_cap, sh_cap, rl_cap, lt_cap), dtype, device)
 
-    plan = build_schur_plan_host(
-        rp_pose, rp_point, rp_cap, bb_pose, bb_obj, bb_cap,
-        {k: caps[k] for k in PLAN_CAP_KEYS if k in caps} or None,
+    plan_args = dict(
+        rp_pose=rp_pose, rp_point=rp_point, rp_cap=rp_cap, bb_pose=bb_pose, bb_obj=bb_obj,
+        bb_cap=bb_cap, caps={k: caps[k] for k in PLAN_CAP_KEYS if k in caps} or None,
         n_pose=pose_cap, rl_before=rl_before, rl_after=rl_after, rl_cap=rl_cap,
-        device=device,
     )
 
     is_ltm = np.zeros(obj_cap, dtype=bool)
@@ -524,7 +552,7 @@ def _build_problem_impl(
                             else relpose_huber_override)
 
     return Problem(
-        state=state, cams=cams, tables=tables, plan=plan, free=free, weights=weights,
+        state=state, cams=cams, tables=tables, plan=None, free=free, weights=weights,
         huber=huber, aux=aux,
         pose_rows=np.array(frames, dtype=np.int64),
         point_rows=np.array(feat_ids, dtype=np.int64),
@@ -532,7 +560,7 @@ def _build_problem_impl(
         reproj_rows=reproj_rows, bbox_rows=bbox_rows, relpose_rows=relpose_rows,
         shape_rows=shape_rows, ltm_rows=ltm_rows, scope=scope,
         base_weights_np=dict(zip(("reproj", "bbox", "shape", "relpose", "ltm"), weights_np)),
-    )
+    ), plan_args
 
 
 def observed_caps(problem: Problem) -> Dict[str, int]:
@@ -592,7 +620,8 @@ def reweight_for_exclusions(
 def write_back(pg: PoseGraph, problem: Problem, state: T.BAState):
     """Write optimized values of free blocks back into the pose graph.
     Returns the host (poses, points, objects)."""
-    host = [x.detach().cpu().numpy() for x in (*state, *problem.free)]
+    with timer(HOST_WAIT):
+        host = [x.detach().cpu().numpy() for x in (*state, *problem.free)]
     poses, points, objects, pose_free, point_free, obj_free = host
     for i, frame in enumerate(problem.pose_rows):
         if pose_free[i]:
