@@ -25,7 +25,7 @@ at 1,024 poses (cyclic reduction) and at 256 poses with the gate forced on
 (the sequential tile loop), and one f64 step of the 1,024-pose problem
 relabelled out and back (``out_and_back``: a loop closure, solved by pair
 enumeration) against its banded step mapped back through the permutation.
-Then it drives the main path, eight phases, each with the launch counts
+Then it drives the main path, nine phases, each with the launch counts
 (and the Schur path counts, ``schur.path_counts``) reset just before it:
 
   - ``global``: the two-phase global bundle adjustment of 256 poses x 4096
@@ -44,8 +44,15 @@ Then it drives the main path, eight phases, each with the launch counts
     16384 points x 64 objects relabelled out and back (the robot drives the
     line out and back over the same ground, so most points are seen from
     poses up to 767 apart): the banded layout refuses it, the point slot
-    grid is over budget, so every step builds the dense U from the pairs and
-    its gram, and the object slot gram; K1 and K2, no K3, no band solve;
+    grid is over budget, and the dense U's gram would do 12288 times pair
+    enumeration's work, so every step enumerates pairs; K1 and K2, no K3,
+    no band solve;
+  - ``loop_tracks``: a loop closure on the dense side of that rule: 768
+    poses x 2048 points seen 40 times each x 64 objects, relabelled out
+    and back; the point slot grid is over budget and the dense U's gram
+    does 288 times pair enumeration's work, so every step builds the dense
+    U from the pairs and its gram, and the object slot gram; K1 and K2, no
+    K3, no band solve;
   - ``loop_1024``: ``scale_1024``'s problem relabelled out and back: U is
     over 256M elements, so every step enumerates pairs (one accumulating
     scatter into S, a 6144^2 Cholesky); K1 and K2; also a fixed
@@ -58,7 +65,7 @@ phases time the host LM loop (``solve_two_phase``); the final-cost gates
 (1e-3) compare an f32 solve and its references made under deterministic
 algorithms (``deterministic``), because where the LM stops on a slow
 descent moves with the order of the card's atomic sums. The ``fused`` phase
-then runs each of the five problems through ``solve_two_phase_fused``,
+then runs each of the six problems through ``solve_two_phase_fused``,
 the path the runner takes on the card: each LM iteration a replay of a
 CUDA graph captured over static buffers, the running flag read once per
 chunk of ``lm_fused.CHUNK`` iterations. In f64 under deterministic
@@ -168,8 +175,9 @@ kernels' times, bounds and launch counts (K1 and K2 also with the device
 kernels per wrapper call, which must be 1, and the launch floor: a
 one-element ``torch.add``), each kernel also at the larger phases' shapes,
 a profile of each synthetic phase (with the band solve's share at 1,024
-poses, the dense U gram's at loop_768, the S scatter's and the Cholesky's
-at loop_1024) and of both sessions' last 8 frames (the object session's run on
+poses, the dense U gram's at loop_tracks, the S scatter's and the
+Cholesky's where the step enumerates pairs) and of both
+sessions' last 8 frames (the object session's run on
 from a copy of its state taken before them), one JSON line describing the
 kernels, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
@@ -233,6 +241,7 @@ GLOBAL = dict(WINDOW, n_poses=256)
 SCALE = dict(n_poses=1024, n_points=16384, n_objects=64, obs_per_point=6, obs_per_object=12,
              seed=0)
 LOOP_768 = dict(SCALE, n_poses=768)
+LOOP_TRACKS = dict(SCALE, n_poses=768, n_points=2048, obs_per_point=40)
 # Synthetic phases of the main path and the kernels each must launch.
 PHASES = {
     "global": (GLOBAL, ("reproj", "bbox", "band_gram")),
@@ -240,15 +249,20 @@ PHASES = {
     "scale_1024": (SCALE, ("reproj", "bbox", "band_gram")),
     "loop_768": (LOOP_768, ("reproj", "bbox")),
     "loop_1024": (SCALE, ("reproj", "bbox")),
+    "loop_tracks": (LOOP_TRACKS, ("reproj", "bbox")),
 }
 # Loop-closure phases: their problem relabelled out and back
 # (``out_and_back``), and the Schur paths (``schur.path_counts``) every step
 # of theirs must take: at 768 poses the point slot grid (16384 x 6 x 768) is
-# over budget, so the dense U from the pairs and its gram, the object slot
-# gram; at 1,024 poses U (6144 x 49152) is over 256M elements, so pair
-# enumeration. Neither runs K3 or the band solve.
-LOOP_PATHS = {"loop_768": ("pt_dense_from_pairs", "ob_slot"),
-              "loop_1024": ("pair_enumeration",)}
+# over budget and the dense U's gram would do more than
+# ``schur._PAIR_WORK_FACTOR`` times pair enumeration's work, at 1,024 poses
+# U (6144 x 49152) is over 256M elements: pair enumeration at both. With
+# 2048 points seen 40 times each, the grid (2048 x 48 x 768) is over budget
+# but the gram does only 288 times pair enumeration's work: the dense U from
+# the pairs, the object slot gram. None runs K3 or the band solve.
+LOOP_PATHS = {"loop_768": ("pair_enumeration",),
+              "loop_1024": ("pair_enumeration",),
+              "loop_tracks": ("pt_dense_from_pairs", "ob_slot")}
 # The phase that must take the band solve (the others must not).
 BAND_SOLVE_PHASE = "scale_1024"
 # The runner session: frames, features (enough that the window's point
@@ -2516,24 +2530,25 @@ def profile_phase(label, phase):
     busy time per LM iteration against the wall time per LM iteration of the
     unprofiled main-path run (the two runs' iteration counts differ: f32
     sums on the card change order from run to run), and the top device ops;
-    at scale_1024 also the band solve's share of the device time; at
-    loop_768 the share of the dense U's gram U U^T, at loop_1024 those of the
-    pair path's S scatter and of S's Cholesky (each timed alone on the
-    operands of the profiled solve's last step). Returns the device ms per
-    LM iteration (None when the profiler saw no device time)."""
+    at scale_1024 also the band solve's share of the device time; where
+    the step builds the dense U from the pairs the share of its gram U U^T,
+    where it enumerates pairs those of the S scatter and of S's Cholesky
+    (each timed alone on the operands of the profiled solve's last step).
+    Returns the device ms per LM iteration (None when the profiler saw no
+    device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     problem32 = phase_problem(label, np.float32)
-    largest = []  # the widest dense U of the solve (a loop-closure point gram)
+    point_u = []  # the dense point U of the solve's last step that built one
     inner = schur_mod._dense_from_pairs
 
-    def dense_spy(*args, **kw):
+    def u_spy(*args, **kw):
         u = inner(*args, **kw)
-        if not largest or u.numel() > largest[0].numel():
-            largest[:] = [u]
+        if args[0] is problem32[4].pt_pair_pose:
+            point_u[:] = [u]
         return u
 
-    schur_mod._dense_from_pairs = dense_spy
+    schur_mod._dense_from_pairs = u_spy
     try:
         with Spy(schur_mod, "_scatter_blocks") as scatter, \
                 profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2565,8 +2580,8 @@ def profile_phase(label, phase):
     # Timed with CUDA events over back-to-back calls: a profiler window over
     # a few calls of tens of ms can lose kernel records.
     shares = {}
-    if label == "loop_768" and largest:
-        u = largest[0]
+    if point_u:
+        u = point_u[0]
         shares[f"dense U gram ({u.shape[0]} x {u.shape[1]}, U U^T)"] = time_ms(
             lambda: u @ u.T, inner=3, reps=5)
     if scatter.calls:

@@ -11,7 +11,9 @@ and solved densely:
   step -> back-substitution -> model cost change.
 
 ``choose_paths`` picks how S is built, as the reference does for
-``dense_schur=None`` (its ``schur.py:1543-1613``):
+``dense_schur=None`` (its ``schur.py:1543-1613``) but for the loop closures
+of the dense-from-pairs case, which the card assembles by pair enumeration
+wherever that does less work:
   - slot grams (``dense_schur``): the Schur subtraction is the gram of
     (W G) placed on the plan's per-landmark slot grid. Dense layout
     (pose-major S): the point gram is one (3L, 6P) gram, through kernel K4
@@ -23,9 +25,16 @@ and solved densely:
     are scattered on directly.
   - dense-from-pairs: a slot grid over ``_SLOT_BUDGET`` elements (a
     landmark seen from poses far apart: loop closures) is replaced by the
-    dense (6P, 3M) / (6P, 7K) U built by scatter, and its gram U U^T.
-  - pair enumeration (U over ``_DENSE_U_LIMIT`` elements): every cross
-    block -W_a H^-1 W_b^T, summed by destination, the relpose blocks and the
+    dense (6P, 3M) / (6P, 7K) U built by scatter, and its gram U U^T. The
+    reference takes it whenever U is within ``_DENSE_U_LIMIT``; the card
+    only while the point gram's multiply-adds, (6P)^2 3M, stay within
+    ``_PAIR_WORK_FACTOR`` times pair enumeration's, 108 per cross row (U
+    is mostly zeros: at 768 poses x 16384 points with 6 observations a
+    point, 0.8% nonzero, and its gram does 12288 times the cross rows'
+    work).
+  - pair enumeration (U over ``_DENSE_U_LIMIT`` elements, or a point slot
+    grid over budget where that does less work): every cross block
+    -W_a H^-1 W_b^T, summed by destination, the relpose blocks and the
     damped diagonal land in one accumulating scatter into S, which is then
     symmetrized.
 
@@ -50,7 +59,12 @@ rest; the reference's GSPMD partitioning becomes explicit collectives
     group; the reference's ``_shard_rows``), the pair enumeration its cross
     rows, and the partial S (or band quadrants, or destination blocks)
     combines in one all_reduce; the path choice and the syrk gate read the
-    global problem, so no path depends on the rank count;
+    global problem (the pair work from the rank's cross rows times the rank
+    count, ``schur_work``), so no path depends on the rank count where the
+    cross rows divide among the ranks: always for the plan builder's
+    capacities ({2^k, 1.5 2^k}, at least 64) on 2, 4, 8, 16 or 32 ranks.
+    Where they do not, every rank runs all of them (``shard_plan``), and
+    the rule weighs that work against its share of the gram;
   - the reduced RHS and the back-substitution run replicated from the pair
     blocks; a dense solve runs replicated; a band solve is domain-decomposed
     over ``_dd_domains`` domains: one per rank (the tiles go deferred to
@@ -119,6 +133,12 @@ _SLOT_BUDGET = 48 * 1024 * 1024
 # Largest dense U (elements) of the automatic choice; above it the step
 # enumerates pairs (schur.py:1580).
 _DENSE_U_LIMIT = 256 * 1024 * 1024
+# Below that limit, with the point slot grid over budget, the step still
+# enumerates pairs once the dense U gram's multiply-adds exceed pair
+# enumeration's this many times (``schur_work``): on the H100 in f32 the two
+# steps take equal time at a ratio of 494-545 (PERF.md, section 6; measured
+# with ``schur_crossover.py``). Tests patch it.
+_PAIR_WORK_FACTOR = 600
 # Block-tridiagonal + Woodbury reduced solve: "auto" takes it from
 # _BAND_SOLVE_MIN_POSES poses where the banded layout allows it (see
 # compute_step); "on" / "off" force it (tests set these with monkeypatch).
@@ -189,12 +209,32 @@ class SchurPaths(NamedTuple):
         return (pt, ob) + (("band_solve",) if self.band_solve else ())
 
 
-def choose_paths(plan, n_pose, n_point, dense_schur=None) -> SchurPaths:
-    """The reference's path choice (schur.py:1543-1613) from the plan's
-    array shapes, the pose count and the point count. ``dense_schur`` None
-    is automatic: slot grams or dense-from-pairs while the dense U (or, on
-    the banded layout, the group z) stays within ``_DENSE_U_LIMIT``
-    elements, pair enumeration above it.
+def schur_work(plan, n_pose, n_point, mesh=None):
+    """(dense, pairs): the multiply-adds of the dense U's point gram,
+    (6P)^2 3L, and of pair enumeration, 108 per cross row (a 6x3 by 3x6
+    product). On a ``mesh`` the pairs count the rank's cross rows times
+    the rank count: the whole plan's where ``shard_plan`` sliced them, the
+    rank count times the whole where it replicated them (their count does
+    not divide), as each rank then runs them all beside its share of the
+    gram. A shard does not record which (its fields are the reference's)."""
+    ranks = 1 if mesh is None else mesh.size
+    return (6 * n_pose) ** 2 * 3 * n_point, 108 * plan.pt_cross_a.shape[0] * ranks
+
+
+def choose_paths(plan, n_pose, n_point, dense_schur=None, mesh=None) -> SchurPaths:
+    """The path choice from the plan's array shapes, the pose count and the
+    point count (and, on a ``mesh``, its rank count). ``dense_schur`` None
+    is automatic, as the reference's (schur.py:1543-1613): slot grams or
+    dense-from-pairs while the dense U (or, on the banded layout, the group
+    z) stays within ``_DENSE_U_LIMIT`` elements, pair enumeration above it.
+
+    The card departs from the reference where the point slot grid is over
+    ``_SLOT_BUDGET``: the reference builds the dense U from the pairs
+    whenever U is within the limit, a rule for a TPU's matrix unit; here
+    the step enumerates pairs once the gram's work exceeds
+    ``_PAIR_WORK_FACTOR`` times theirs (``schur_work``). The rule reads
+    shapes only, so every rank and every graph key
+    (``lm_fused._graph_key``) takes the same path.
 
     Unlike the reference, S is (component, pose)-major only on the slot-gram
     path: pair enumeration assembles a pose-major S whatever the layout."""
@@ -211,7 +251,13 @@ def choose_paths(plan, n_pose, n_point, dense_schur=None) -> SchurPaths:
             u_elems = lp[0] * lp[1] * 3 * 6 * 2 * BAND_TP
         else:
             u_elems = (n_pose * 6) * (n_point * 3)
-        dense_schur = u_elems <= _DENSE_U_LIMIT
+        if u_elems > _DENSE_U_LIMIT:
+            dense_schur = False
+        elif pt_slot:
+            dense_schur = True
+        else:
+            dense, pairs = schur_work(plan, n_pose, n_point, mesh)
+            dense_schur = dense <= _PAIR_WORK_FACTOR * pairs
     dense_schur = bool(dense_schur)
     cp_order = dense_schur and pt_band and pt_slot
     band_solve_on = (
@@ -519,7 +565,7 @@ def compute_step(
     n_pose = state.poses.shape[0]
     n_point = state.points.shape[0]
     n_obj = state.objects.shape[0]
-    paths = choose_paths(plan, n_pose, n_point, dense_schur)
+    paths = choose_paths(plan, n_pose, n_point, dense_schur, mesh)
     _count_paths(paths)
     band_local = plan.pt_band_local_pose
     pt_band, cp_order, band_solve_on = paths.pt_band, paths.cp_order, paths.band_solve

@@ -2,7 +2,9 @@
 f64 on the CPU: pair enumeration (``dense_schur=False``), the dense U built
 from the pairs for an over-budget slot grid, the automatic path choice
 (``schur.choose_paths``) on an out-and-back (loop-closure) relabelling, and
-a two-phase solve of that problem; the f32 pair path against the f64 one."""
+a two-phase solve of that problem; the f32 pair path against the f64 one;
+the card's choice between the dense U and pair enumeration
+(``schur._PAIR_WORK_FACTOR``) at the chip phases' and sessions' shapes."""
 
 import importlib.util
 from pathlib import Path
@@ -20,6 +22,8 @@ import obvi_slam_tpu_torch as ot
 from obvi_slam_tpu_torch import compute_step
 from obvi_slam_tpu_torch.solver import LMParams, TwoPhaseConfig, solve_two_phase
 from obvi_slam_tpu_torch.solver import schur as schur_mod
+from obvi_slam_tpu_torch.solver.plan import build_schur_plan_host
+from obvi_slam_tpu_torch.solver.problem import PLAN_CAP_KEYS
 from test_torch_lm import _assert_same_summary
 from test_torch_step import IDS, SIZES, _weights, jax_compute_step
 from torch_port_helpers import jax_problem, npy, out_and_back, rel_err, to_port
@@ -79,13 +83,16 @@ def _slot_elems(plan, n_pose, kind):
     return int(np.prod(getattr(plan, f"{kind}_slot_gather").shape)) * n_pose
 
 
+@pytest.mark.parametrize("dense_schur", [None, True], ids=["auto", "forced"])
 @pytest.mark.parametrize("kind,size", [("points", SIZES[1]), ("objects", SIZES[0]),
                                        ("both", SIZES[0]), ("both", SIZES[1])],
                          ids=["points-24", "objects-16", "both-16", "both-24"])
-def test_dense_from_pairs_matches_jax_slot_path(kind, size, monkeypatch):
+def test_dense_from_pairs_matches_jax_slot_path(kind, size, dense_schur, monkeypatch):
     """A slot grid over _SLOT_BUDGET takes the dense U built from the pairs
     (the budget patched below the grid's size; the JAX package's budget is
-    a local): its step against the JAX package's slot-gram step."""
+    a local), by the automatic choice (these shapes lie far on the dense
+    side of _PAIR_WORK_FACTOR) and forced: its step against the JAX
+    package's slot-gram step."""
     prob = jax_problem(**size)
     n_pose = size["n_poses"]
     pt, ob = (_slot_elems(prob[4], n_pose, k) for k in ("pt", "ob"))
@@ -95,19 +102,20 @@ def test_dense_from_pairs_matches_jax_slot_path(kind, size, monkeypatch):
             "both": ("pt_dense_from_pairs", "ob_dense_from_pairs")}[kind]
     monkeypatch.setattr(schur_mod, "_SLOT_BUDGET", budget)
     weights = _weights(prob[3], "dropped")
-    ours, paths = _port_step(prob, weights, 3.0)
+    ours, paths = _port_step(prob, weights, 3.0, dense_schur=dense_schur)
     assert paths == dict({"steps": 1}, **{name: 1 for name in want})
     _assert_same_step(ours, _jax_step(prob, weights, 3.0, True))
 
 
-@pytest.mark.parametrize("path", ["pair", "dense-from-pairs"])
+@pytest.mark.parametrize("path", ["pair", "dense-from-pairs", "dense-from-pairs-forced"])
 @pytest.mark.parametrize("size", SIZES, ids=IDS)
 def test_f32_pair_paths_track_f64(size, path, monkeypatch):
     """The bound of tests/test_f32_precision.py:57-60 for the reference's
-    f32 pair path."""
-    if path == "dense-from-pairs":
+    f32 pair path, and for the dense U from the pairs by the automatic
+    choice and forced."""
+    if path != "pair":
         monkeypatch.setattr(schur_mod, "_SLOT_BUDGET", 1)
-    dense = False if path == "pair" else None
+    dense = {"pair": False, "dense-from-pairs": None, "dense-from-pairs-forced": True}[path]
     steps = {}
     for dtype in (np.float64, np.float32):
         state, _, cams, tables, plan, free, weights, huber = ot.synthetic_problem(
@@ -194,17 +202,124 @@ def test_pair_path_on_a_banded_plan(loop):
     assert rel_err(jax_pair[0].poses, ref[0].poses) > 0.5
 
 
-@pytest.mark.parametrize("label,want", [
-    ("loop_768", ("pt_dense_from_pairs", "ob_slot")), ("loop_1024", ("pair_enumeration",)),
-    ("scale_1024", ("pt_band_slot", "ob_slot", "band_solve"))])
-def test_choose_paths_at_the_chip_phases_shapes(label, want):
+def test_out_and_back_auto_over_the_factor_matches_jax_dense_step(loop, monkeypatch):
+    """An over-budget point slot grid (the budget patched below it; the JAX
+    package's is a local) where the dense U gram would do more than
+    _PAIR_WORK_FACTOR times pair enumeration's work: the automatic choice
+    enumerates pairs and returns the JAX package's dense step."""
+    _, relabelled, _ = loop
+    plan, weights = relabelled[4], relabelled[6]
+    n_pose, n_point = LOOP["n_poses"], LOOP["n_points"]
+    monkeypatch.setattr(schur_mod, "_SLOT_BUDGET", _slot_elems(plan, n_pose, "pt") - 1)
+    assert _slot_elems(plan, n_pose, "ob") <= schur_mod._SLOT_BUDGET
+    dense_work = (6 * n_pose) ** 2 * 3 * n_point
+    assert dense_work > schur_mod._PAIR_WORK_FACTOR * 108 * plan.pt_cross_a.shape[0]
+    ours, paths = _port_step(relabelled, weights, 1e4)
+    assert paths == {"steps": 1, "pair_enumeration": 1}
+    _assert_same_step(ours, _jax_step(relabelled, weights, 1e4, True))
+
+
+def _window_plan(data, pool, lo, hi, visual=True):
+    """The host plan of frames [lo, hi] of ``data`` at the capacities of
+    ``pool``: the window's feature observations (none when not
+    ``visual``) and a relpose chain."""
+    rp_pose, rp_point, n_land = [], [], 0
+    for track in data.feature_tracks.values() if visual else ():
+        frames = [f for f in sorted(track) if lo <= f <= hi]
+        for f in frames:
+            rp_pose += [f - lo] * len(track[f])
+            rp_point += [n_land] * len(track[f])
+        n_land += bool(frames)
+    rel = np.arange(min(hi, data.max_frame_id()) - lo)
+    plan = build_schur_plan_host(
+        rp_pose, rp_point, pool["reproj"], [], [], pool["bbox"],
+        caps={k: pool[k] for k in PLAN_CAP_KEYS}, n_pose=pool["n_pose"],
+        rl_before=rel, rl_after=rel + 1, rl_cap=pool["relpose"], device="cpu")
+    return plan, pool["n_pose"], pool["n_point"]
+
+
+# The object session of the benchmark's objects.dense_chairs cell: 240
+# stereo frames, 3360 landmarks, 44 chairs, PGO on its global-BA frames.
+DENSE_CHAIRS = dict(chip_smoke.OBJECTS, n_frames=240, n_features=3360, n_objects=44)
+
+
+@pytest.fixture(scope="module")
+def session_plans():
+    """Host plans at the capacities ``presize_session_caps`` seeds: the
+    visual session's (chip_smoke.SESSION) first window and whole session
+    ("local" and "global" pools), and the object session's PGO (no visual
+    factors) and post-PGO feature BA over the whole session ("pgo" and
+    "pgo_vf" pools)."""
+    data, _, _ = ot.synthetic_session(**chip_smoke.SESSION)
+    runner = ot.OfflineProblemRunner(ot.config.FullOVSLAMConfig(), device="cpu")
+    pools = runner.presize_session_caps(data)
+    window = runner.config.sliding_window_params.local_ba_window_size
+    plans = {"local": _window_plan(data, pools["local"], 0, window),
+             "global": _window_plan(data, pools["global"], 0, data.max_frame_id())}
+    data, _, _ = ot.synthetic_object_session(**DENSE_CHAIRS)
+    runner = ot.OfflineProblemRunner(chip_smoke.object_config(), device="cpu")
+    pools = runner.presize_session_caps(data)
+    last = data.max_frame_id()
+    plans["pgo"] = _window_plan(data, pools["pgo"], 0, last, visual=False)
+    plans["pgo_vf"] = _window_plan(data, pools["pgo_vf"], 0, last)
+    return plans
+
+
+@pytest.mark.parametrize("label,want,ratio", [
+    ("loop_768", ("pair_enumeration",), 12288),
+    ("loop_1024", ("pair_enumeration",), None),
+    ("scale_1024", ("pt_band_slot", "ob_slot", "band_solve"), None),
+    ("loop_tracks", ("pt_dense_from_pairs", "ob_slot"), 288),
+    ("session_local", ("pt_slot", "ob_slot"), None),
+    ("session_global", ("pt_slot", "ob_slot"), None),
+    ("session_pgo", ("pt_dense_from_pairs", "ob_dense_from_pairs"), 64 / 3),
+    ("session_pgo_vf", ("pt_dense_from_pairs", "ob_dense_from_pairs"), 64 / 3),
+    ("window", ("pt_slot", "ob_slot"), None),
+])
+def test_choose_paths_at_the_chip_phases_shapes(label, want, ratio, session_plans):
     """The decision at chip_smoke's phase shapes (1024 or 768 poses x 16384
-    points x 64 objects), from plans built on the host with no solve."""
-    prob = ot.synthetic_problem(**chip_smoke.PHASES[label][0], device="cpu")
-    plan = chip_smoke.out_and_back(prob)[0][4] if label in chip_smoke.LOOP_PATHS else prob[4]
-    n_pose, n_point = prob[0].poses.shape[0], prob[0].points.shape[0]
-    assert schur_mod.choose_paths(plan, n_pose, n_point).labels() == want
+    points x 64 objects, 768 poses x 2048 points seen 40 times, the
+    64-pose window), its session's windows and the PGO-family solves of
+    the objects.dense_chairs session (256 poses x 4096 points), from plans
+    built on the host with no solve. Where the point slot grid is over
+    budget and U within its limit, the card enumerates pairs exactly when
+    the dense U gram would do more than _PAIR_WORK_FACTOR times their work
+    (``ratio``: the work ratio of the decision); the banded layout, the
+    sessions' windows and the dense-layout window never reach that rule."""
+    if label.startswith("session_"):
+        plan, n_pose, n_point = session_plans[label[len("session_"):]]
+    else:
+        prob = ot.synthetic_problem(**chip_smoke.PHASES[label][0], device="cpu")
+        loop = label in chip_smoke.LOOP_PATHS
+        plan = chip_smoke.out_and_back(prob)[0][4] if loop else prob[4]
+        n_pose, n_point = prob[0].poses.shape[0], prob[0].points.shape[0]
+    paths = schur_mod.choose_paths(plan, n_pose, n_point)
+    assert paths.labels() == want
     assert chip_smoke.LOOP_PATHS.get(label, want) == want
+    dense_work, pair_work = schur_mod.schur_work(plan, n_pose, n_point)
+    assert dense_work == (6 * n_pose) ** 2 * 3 * n_point
+    assert pair_work == 108 * plan.pt_cross_a.shape[0]
+    if ratio is not None:
+        assert dense_work / pair_work == pytest.approx(ratio, rel=1e-12)
+        assert (dense_work > schur_mod._PAIR_WORK_FACTOR * pair_work) == (not paths.dense)
+
+
+def test_crossover_tool_rehearses_on_the_cpu(tmp_path):
+    """schur_crossover.py's control flow at a tiny size: each mode takes
+    its path, and the pair step tracks the dense one."""
+    import json
+
+    import schur_crossover
+
+    out = tmp_path / "crossover.json"
+    assert schur_crossover.main(["--device", "cpu", "--poses", "16", "--points", "256",
+                                 "--objects", "4", "--out", str(out)]) == 0
+    (line,) = json.loads(out.read_text())["lines"]
+    modes = {name: m["paths"] for name, m in line["modes"].items()}
+    assert modes == {"dense_from_pairs": ["ob_slot", "pt_dense_from_pairs"],
+                     "pairs": ["pair_enumeration"]}
+    assert line["work_ratio"] == pytest.approx(line["dense_macs"] / line["pair_macs"])
+    assert line["pose_gap_pairs_vs_dense"] < 1e-3
 
 
 @pytest.mark.parametrize("dense_schur", [None, False], ids=["auto", "pair"])
