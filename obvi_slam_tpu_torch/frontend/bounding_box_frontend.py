@@ -37,6 +37,9 @@ differently and then build different problems.
 
 Cross-session note: for the feature-based frontend the LTM appearance payload
 is empty, so LTM objects re-associate geometrically via the merge path.
+``ltm_merges`` counts the objects merged into an LTM object: pending objects
+(``_merge_pending``) and, through ``apply_merges`` with this frontend, the
+post-session merge's.
 """
 
 from __future__ import annotations
@@ -188,6 +191,7 @@ class FeatureBasedBoundingBoxFrontEnd:
         self.rank_differences: List[float] = []
 
         self.pending: List[PendingObject] = []
+        self.ltm_merges = 0
         # The mini-BA's session capacities (the runner's caps pools' role):
         # bucketed and max-accumulated over the session's mini-BAs.
         self._mini_ba_caps: Dict[str, int] = {}
@@ -654,6 +658,7 @@ class FeatureBasedBoundingBoxFrontEnd:
         removed = []
         for pend_idx, obj_id in to_merge:
             pend = self.pending[pend_idx]
+            self.ltm_merges += obj_id in self.pg.ltm_object_ids
             for obs in pend.observations:
                 self.pg.add_object_observation(
                     obj_id, obs.frame_id, obs.camera_id, obs.corners, obs.covariance
@@ -747,6 +752,7 @@ def apply_merges(pg: PoseGraph, merge_results: Dict[int, Set[int]], frontend=Non
             if keep not in pg.objects or remove not in pg.objects:
                 continue
             if frontend is not None:
+                frontend.ltm_merges += keep in pg.ltm_object_ids
                 app = frontend.object_appearance.pop(remove, {})
                 target = frontend.object_appearance.setdefault(keep, {})
                 for fr, cams in app.items():

@@ -22,6 +22,17 @@ Counterpart of ``obvi_slam_tpu/ltm.py`` (the reference's LTM subsystem):
 
 The JSON format is the reference's: a map saved by either package loads in
 the other.
+
+Spans (``timing.timer``): ``ltm_extraction`` holds ``ltm_far_features`` (the
+filter and the zeroed weights), ``ltm_covariance`` (each call of the marginal
+covariances on ``device``, the repair's retry too, with its read-back),
+``ltm_rank_check`` (the host eigendecomposition and the repair's priors) and
+``ltm_psd`` (the PSD clamp), one after another;
+``ltm_seed`` times ``seed_pose_graph_from_ltm``. ``ltm_stats`` counts, since
+the last ``reset_ltm_stats()``: LTM objects ``seeded``, ``extractions``
+attempted, ``repaired_params`` (the repair's scalar priors), ``psd_clamps``
+(extractions whose blocks the clamp recomputed) and ``fallbacks`` (failed
+extractions answered with the previous map).
 """
 
 from __future__ import annotations
@@ -43,6 +54,16 @@ from obvi_slam_tpu_torch.solver.schur import compute_marginal_covariances
 from obvi_slam_tpu_torch.timing import timer
 
 logger = logging.getLogger(__name__)
+
+# Since the last reset_ltm_stats() (see the module docstring).
+ltm_stats: dict = {}
+
+
+def reset_ltm_stats() -> None:
+    ltm_stats.update(seeded=0, extractions=0, repaired_params=0, psd_clamps=0, fallbacks=0)
+
+
+reset_ltm_stats()
 
 
 @dataclass
@@ -173,6 +194,7 @@ def extract_long_term_object_map(
 
     ``caps``: pinned minimum capacities of the extraction problem (e.g. the
     runner's "global" pool). ``plain``: the kernels' plain versions."""
+    ltm_stats["extractions"] += 1
     with timer("ltm_extraction"):
         ltm = _extract(pg, config, front_end_data, dtype, caps, device, plain)
     if ltm is None:
@@ -181,6 +203,7 @@ def extract_long_term_object_map(
             and prev_ltm is not None
         ):
             logger.warning("LTM extraction failed; falling back to previous map")
+            ltm_stats["fallbacks"] += 1
             return prev_ltm
         return None
     return ltm
@@ -226,6 +249,7 @@ def _ensure_psd_covs(covs, red_h, n_pose, min_col_norm):
         tol = -1e-12 * np.abs(w).max(axis=-1, keepdims=True)
         if not np.any(w <= tol):
             return covs
+    ltm_stats["psd_clamps"] += 1
     logger.warning(
         "LTM covariances non-PSD from dense inverse; recomputing via "
         "clamped eigen pseudo-inverse of the reduced Hessian"
@@ -263,25 +287,28 @@ def _extract(pg, config, front_end_data, dtype, caps=None, device="cuda", plain=
     )
 
     # Far-feature filter: zero the weights of their reprojection factors.
-    far = far_feature_ids(pg, config.ltm_tunable_params.far_feature_threshold)
-    weights = problem.weights
-    if far:
-        weights = _drop_far_features(pg, problem, weights, far)
+    with timer("ltm_far_features"):
+        far = far_feature_ids(pg, config.ltm_tunable_params.far_feature_threshold)
+        weights = problem.weights
+        if far:
+            weights = _drop_far_features(pg, problem, weights, far)
 
-    covs, h_diag, ok, red_h = compute_marginal_covariances(
-        problem.state, problem.cams, problem.tables, problem.plan, problem.free,
-        weights, problem.huber, return_reduced_hessian=True, plain=plain,
-    )
-    ok = bool(ok)
+    with timer("ltm_covariance"):
+        covs, _, ok, red_h = compute_marginal_covariances(
+            problem.state, problem.cams, problem.tables, problem.plan, problem.free,
+            weights, problem.huber, return_reduced_hessian=True, plain=plain,
+        )
+        ok = bool(ok)
+        covs = covs.cpu().numpy()
+        red_h = red_h.cpu().numpy().astype(np.float64)
 
     min_col_norm = config.ltm_tunable_params.min_col_norm
     state_np = {
         "pose": problem.state.poses.cpu().numpy(),
         "object": problem.state.objects.cpu().numpy(),
     }
-    red_h = red_h.cpu().numpy().astype(np.float64)
-    deficient = find_rank_deficiencies(red_h, state_np, min_col_norm)
-
+    with timer("ltm_rank_check"):
+        deficient = find_rank_deficiencies(red_h, state_np, min_col_norm)
     if (not ok) or deficient:
         # Repair only the identified null-space params with weak scalar
         # priors and retry. No global ridge: it would shrink every reported
@@ -289,20 +316,24 @@ def _extract(pg, config, front_end_data, dtype, caps=None, device="cuda", plain=
         # still non-finite, extraction failed -> previous-map fallback.
         if not deficient:
             return None
-        pp = T.make_param_prior_factors(
-            *([d[k] for d in deficient] for k in range(5)), dtype=dtype, device=device
-        )
-        tables = problem.tables._replace(param_prior=pp)
-        covs, h_diag, ok = compute_marginal_covariances(
-            problem.state, problem.cams, tables, problem.plan, problem.free,
-            weights, problem.huber, plain=plain,
-        )
-        if not bool(ok):
+        ltm_stats["repaired_params"] += len(deficient)
+        with timer("ltm_rank_check"):
+            pp = T.make_param_prior_factors(
+                *([d[k] for d in deficient] for k in range(5)), dtype=dtype, device=device
+            )
+            tables = problem.tables._replace(param_prior=pp)
+        with timer("ltm_covariance"):
+            covs, _, ok = compute_marginal_covariances(
+                problem.state, problem.cams, tables, problem.plan, problem.free,
+                weights, problem.huber, plain=plain,
+            )
+            ok = bool(ok)
+            covs = covs.cpu().numpy()
+        if not ok:
             return None
 
-    covs = _ensure_psd_covs(
-        covs.cpu().numpy(), red_h, state_np["pose"].shape[0], min_col_norm
-    )
+    with timer("ltm_psd"):
+        covs = _ensure_psd_covs(covs, red_h, state_np["pose"].shape[0], min_col_norm)
     if covs is None:
         return None
     ellipsoids = {}
@@ -334,8 +365,10 @@ def _drop_far_features(pg, problem, weights, far):
 
 def seed_pose_graph_from_ltm(pg: PoseGraph, ltm: LongTermObjectMap):
     """Pre-insert LTM ellipsoids with known ids + one unary prior factor each."""
-    for obj_id, (semantic_class, ellipsoid) in ltm.ellipsoids.items():
-        pg.add_ltm_object(obj_id, ellipsoid, semantic_class)
-        cov = ltm.covariances.get(obj_id)
-        if cov is not None:
-            pg.add_ltm_factor(obj_id, ellipsoid, cov)
+    with timer("ltm_seed"):
+        for obj_id, (semantic_class, ellipsoid) in ltm.ellipsoids.items():
+            pg.add_ltm_object(obj_id, ellipsoid, semantic_class)
+            cov = ltm.covariances.get(obj_id)
+            if cov is not None:
+                pg.add_ltm_factor(obj_id, ellipsoid, cov)
+    ltm_stats["seeded"] += len(ltm.ellipsoids)

@@ -27,10 +27,11 @@ inside them and carry the frame id, which ``add_frame_data`` and
 ``run_optimization_iteration`` set (``timing.set_frame``). Every solve's LM
 iterations go to the optimization logger (``optlog``) when it has a
 directory. Before frame 0 ``presize_session_caps`` seeds every caps pool
-from the raw data's counts, as the reference does, so that the windows,
-global BAs and PGO problems keep the session's capacities from the first
-frame and the card's CUDA graphs (cached by shape) see few shapes. The
-reference's device diff-sync is not ported.
+from the raw data's counts, as the reference does, and from the objects
+seeded from a long-term map, which the reference does not, so that the
+windows, global BAs and PGO problems keep the session's capacities from
+the first frame and the card's CUDA graphs (cached by shape) see few
+shapes. The reference's device diff-sync is not ported.
 
 With a ``mesh`` (``parallel.make_mesh``) every rank runs the session
 identically on the host, and global-BA problems (window problems too with
@@ -234,12 +235,15 @@ class OfflineProblemRunner:
     def caps_pool(self, key: str) -> dict:
         return self._caps_pools.setdefault(key, {})
 
-    def _window_caps_seed(self, data: OfflineProblemData, lo: int, hi: int) -> Dict[str, int]:
+    def _window_caps_seed(
+        self, data: OfflineProblemData, lo: int, hi: int, n_ltm: int = 0
+    ) -> Dict[str, int]:
         """Upper bound of the caps of any problem over frames [lo, hi], from
         the raw counts: the frontends admit only observations present in
-        the raw data, and objects by the raw bounding boxes. An
-        under-estimate is safe: caps are minimums and a larger window grows
-        its pool."""
+        the raw data, and objects by the raw bounding boxes, besides the
+        ``n_ltm`` objects seeded from a long-term map (each with its LTM
+        prior and shape prior). An under-estimate is safe: caps are minimums
+        and a larger window grows its pool."""
         obs = pairs = cross = feats = 0
         max_frames_per_track = 0
         tile_counts: Dict[int, int] = {}
@@ -272,7 +276,7 @@ class OfflineProblemRunner:
             "reproj": _bucket(max(obs, 1)),
             "bbox": _bucket(max(bbs, 1)),
             "shape": _bucket(16),
-            "ltm": _bucket(16),
+            "ltm": _bucket(n_ltm),
             "relpose": _bucket(n_frames + 1),
             "n_pose": pose_cap,
             "n_point": _bucket(max(feats, 1)),
@@ -292,24 +296,24 @@ class OfflineProblemRunner:
             "pt_band_lg": 0,
             "rel_band_lg": 0,
         }
+        # One object per raw box. The reference means to divide by the
+        # association's min_observations, but reads it from a config
+        # attribute that does not exist and so divides by 1; the port keeps
+        # its numbers. The LTM's objects are in the graph from the start.
+        n_obj = bbs + n_ltm
+        if n_obj:
+            seed.update(n_obj=_bucket(n_obj, minimum=8), shape=_bucket(n_obj))
         if bbs:
-            # One object per raw box. The reference means to divide by the
-            # association's min_observations, but reads it from a config
-            # attribute that does not exist and so divides by 1; the port
-            # keeps its numbers.
-            n_obj = bbs
             # The plan keeps one pair per (pose, object), so an object has at
             # most n_frames + 1 pairs and at most as many as its boxes:
             # sum(pairs_o^2) <= bbs * (n_frames + 1).
             ob_cross = min(bbs * bbs, bbs * (n_frames + 1))
             seed.update(
-                n_obj=_bucket(n_obj, minimum=8),
                 ob_pair=_round_up(bbs),
                 ob_cross=_round_up(ob_cross),
                 ob_dest=_round_up(min(ob_cross, (n_frames + 1) ** 2)),
                 ob_slot_land=_round_up(n_obj),
                 ob_slot_c=_round_up(min(bbs, n_frames + 1), bucket=4),
-                shape=_bucket(n_obj),
             )
         if pose_cap >= 3 * BAND_TP and band_ok and tile_counts:
             # The band layout engages at this pose capacity: its group sizes
@@ -325,15 +329,15 @@ class OfflineProblemRunner:
             pool[k] = max(pool.get(k, 0), int(v))
         return pool
 
-    def presize_local_caps(self, data: OfflineProblemData) -> dict:
+    def presize_local_caps(self, data: OfflineProblemData, n_ltm: int = 0) -> dict:
         """Seeds the "local" pool from the first full window's raw counts
         (frames [0, local_ba_window_size]), so that the growing windows of
         the first frames share one shape."""
         w = self.config.sliding_window_params.local_ba_window_size
-        return self._seed_pool("local", self._window_caps_seed(data, 0, w))
+        return self._seed_pool("local", self._window_caps_seed(data, 0, w, n_ltm))
 
     def presize_session_caps(
-        self, data: OfflineProblemData, max_frame_id: Optional[int] = None
+        self, data: OfflineProblemData, max_frame_id: Optional[int] = None, n_ltm: int = 0
     ) -> dict:
         """Seeds every session pool from the raw counts of the session's
         frames, so that each solve family runs at the session's capacities
@@ -343,11 +347,12 @@ class OfflineProblemRunner:
         window (poses_prior_to_window_to_keep_constant + 1 frames) at each
         global-BA frequency step. Padding rows are masked, so the results
         equal an unseeded session's up to roundoff. The seeds read the raw
-        data only: the ranks of a mesh agree without a collective."""
+        data and ``n_ltm``, the objects seeded from a long-term map, only:
+        the ranks of a mesh agree without a collective."""
         if max_frame_id is None:
             max_frame_id = data.max_frame_id()
-        self.presize_local_caps(data)
-        session = self._window_caps_seed(data, 0, max_frame_id)
+        self.presize_local_caps(data, n_ltm)
+        session = self._window_caps_seed(data, 0, max_frame_id, n_ltm)
         self._seed_pool("global", session)
         en = self.config.optimization_factors_enabled_params
         if en.use_pose_graph_on_global_ba or en.use_pose_graph_on_final_global_ba:
@@ -357,7 +362,9 @@ class OfflineProblemRunner:
             step = max(1, self.config.sliding_window_params.global_ba_frequency)
             track_seed: Dict[str, int] = {}
             for f in range(0, max_frame_id + 1, step):
-                ws = self._window_caps_seed(data, max(0, f - n_const), min(f, max_frame_id))
+                ws = self._window_caps_seed(
+                    data, max(0, f - n_const), min(f, max_frame_id), n_ltm
+                )
                 for k, v in ws.items():
                     track_seed[k] = max(track_seed.get(k, 0), v)
             self._seed_pool("pgo_tracking", track_seed)
@@ -734,7 +741,7 @@ class OfflineProblemRunner:
             max_frame_id = min(lt.max_frame_id, max_frame_id)
 
         with timer("offline_runner_online_portion"):
-            self.presize_session_caps(data, max_frame_id)
+            self.presize_session_caps(data, max_frame_id, n_ltm=len(pg.ltm_object_ids))
             if start_at_frame == 0 and add_data_for_starting_frame:
                 self.add_frame_data(data, pg, 0, 0)
             for next_frame_id in range(max(1, start_at_frame), max_frame_id + 1):
@@ -750,7 +757,11 @@ class OfflineProblemRunner:
                         data, pg, window_start, next_frame_id, max_frame_id
                     ):
                         return False
+        return self.run_offline_portion(data, pg, max_frame_id)
 
+    def run_offline_portion(self, data: OfflineProblemData, pg: PoseGraph, max_frame_id) -> bool:
+        """The session's end after its last frame: the final optimization
+        over the whole trajectory, then the merge loop."""
         with timer("offline_runner_offline_portion"):
             # Final refinement over the whole trajectory.
             self._checkpoint(

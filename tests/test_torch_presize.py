@@ -129,7 +129,7 @@ class TestCapsPresize:
             runner.presize_session_caps = lambda *a, **k: runner._caps_pools
         elif mode == "tiny":
             # Horizon 3 of a 12-frame session: later windows outgrow it.
-            def tiny(d, max_frame_id=None):
+            def tiny(d, max_frame_id=None, n_ltm=0):
                 runner._seed_pool("local", runner._window_caps_seed(d, 0, 3))
                 runner._seed_pool("global", runner._window_caps_seed(d, 0, 3))
                 return runner._caps_pools
